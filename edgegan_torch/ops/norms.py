@@ -1,0 +1,63 @@
+"""Normalisations, NCHW (reference nn/modules/normalization.py).
+
+- instance_norm: `(x - mean) / (sqrt(var) + eps)`, eps OUTSIDE the sqrt,
+  no learnable scale/shift (quirk Q1), population variance over H, W.
+- batch_norm: train-mode batch statistics (the reference hard-codes
+  `is_training=True`, quirk Q14), learnable gamma/beta, eps INSIDE the
+  sqrt, computed in float32 and cast back.
+
+Statistics are float32 whatever the input dtype.
+"""
+from __future__ import annotations
+
+import os
+
+import torch
+
+
+def nan_guards_enabled() -> bool:
+    """EDGEGAN_NAN_GUARDS=0 turns off the zero-variance `where` guards,
+    making the numerics reference-exact including its NaN hazards. Read
+    at call time."""
+    return os.environ.get('EDGEGAN_NAN_GUARDS', '1') != '0'
+
+
+def _denom(var, eps: float):
+    """sqrt(var) + eps; at var == 0 (a constant plane) the guarded form
+    returns eps with a zero gradient instead of the sqrt's NaN."""
+    if nan_guards_enabled():
+        nondegenerate = var > 0
+        safe_var = torch.where(nondegenerate, var, torch.ones_like(var))
+        return torch.where(nondegenerate, torch.sqrt(safe_var) + eps,
+                           torch.full_like(var, eps))
+    return torch.sqrt(var) + eps
+
+
+def instance_norm(x, eps: float = 1e-5):
+    """Instance norm over the spatial axes of NCHW `x`.
+
+    float32 takes the reference path. Other dtypes keep the statistics
+    in float32 and normalise in the input dtype, as the JAX package does
+    for bfloat16 (ops/norms.py:69-79).
+    """
+    if x.dtype == torch.float32:
+        mean = x.mean(dim=(2, 3), keepdim=True)
+        var = torch.square(x - mean).mean(dim=(2, 3), keepdim=True)
+        return (x - mean) / _denom(var, eps)
+    mean32 = x.mean(dim=(2, 3), keepdim=True, dtype=torch.float32)
+    diff = x - mean32.to(x.dtype)
+    var = torch.square(diff).mean(dim=(2, 3), keepdim=True,
+                                  dtype=torch.float32)
+    return diff * (1.0 / _denom(var, eps)).to(x.dtype)
+
+
+def batch_norm(x, gamma, beta, eps: float = 1e-5):
+    """Train-mode batch norm of NCHW `x` (tf.contrib batch_norm with
+    is_training=True, epsilon=1e-5). Returns (out, mean, var)."""
+    x32 = x.float()
+    mean = x32.mean(dim=(0, 2, 3), keepdim=True)
+    var = torch.square(x32 - mean).mean(dim=(0, 2, 3), keepdim=True)
+    out = (x32 - mean) * torch.rsqrt(var + eps)
+    out = out * gamma.float().view(1, -1, 1, 1) + beta.float().view(
+        1, -1, 1, 1)
+    return out.to(x.dtype), mean.reshape(-1), var.reshape(-1)

@@ -1,0 +1,44 @@
+"""Pooling, NCHW."""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .conv import same_pads
+
+
+def _axis_counts(in_size: int, window: int, stride: int) -> np.ndarray:
+    """Valid (unpadded) elements under each SAME window along one axis."""
+    out_size = -(-in_size // stride)
+    lo, _ = same_pads(in_size, window, stride)
+    starts = np.arange(out_size) * stride - lo
+    ends = starts + window
+    return (np.minimum(ends, in_size) - np.maximum(starts, 0)).astype(
+        np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _counts(h: int, w: int, window: int, stride: int, device: torch.device):
+    """The static divisor matrix, copied to the device once per shape (a
+    copy from pageable memory on every call would stall the host)."""
+    counts = np.outer(_axis_counts(h, window, stride),
+                      _axis_counts(w, window, stride))
+    return torch.from_numpy(counts).to(device)
+
+
+def tf_avg_pool(x, window: int, stride: int):
+    """tf.nn.avg_pool(x, [1,w,w,1], [1,s,s,1], 'SAME') on NCHW `x`.
+
+    TF leaves SAME padding out of the divisor, and `F.avg_pool2d` cannot
+    pad asymmetrically: pad with zeros, sum-pool, and divide by the
+    static count of valid elements per window. Computed in float32.
+    """
+    h, w = x.shape[2], x.shape[3]
+    hl, hh = same_pads(h, window, stride)
+    wl, wh = same_pads(w, window, stride)
+    x32 = F.pad(x.float(), (wl, wh, hl, hh))
+    summed = F.avg_pool2d(x32, window, stride, divisor_override=1)
+    return (summed / _counts(h, w, window, stride, x.device)).to(x.dtype)

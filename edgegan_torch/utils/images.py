@@ -1,0 +1,68 @@
+"""Host-side image transforms for the PNG route (numpy + PIL).
+
+A copy of the JAX package's utils/images.py:22-86, which matches the
+reference's scipy.misc behaviour: `imresize` on a float array first
+stretches the array's own [min, max] onto [0, 255] (`bytescale`), and
+saving stretches again.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+from PIL import Image
+
+
+def bytescale(data: np.ndarray, cmin: Optional[float] = None,
+              cmax: Optional[float] = None) -> np.ndarray:
+    """scipy.misc.bytescale: linear stretch of [cmin, cmax] -> [0, 255]."""
+    if data.dtype == np.uint8:
+        return data
+    cmin = float(data.min()) if cmin is None else cmin
+    cmax = float(data.max()) if cmax is None else cmax
+    cscale = cmax - cmin
+    if cscale == 0:
+        cscale = 1
+    scale = 255.0 / cscale
+    out = (data - cmin) * scale + 0.4999  # scipy rounds via +0.5 cast
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def imresize(arr: np.ndarray, size: Tuple[int, int],
+             interp: str = 'bilinear') -> np.ndarray:
+    """scipy.misc.imresize: bytescale -> PIL resize -> uint8. `size` is
+    (height, width)."""
+    data = bytescale(arr)
+    resample = {'nearest': Image.NEAREST, 'bilinear': Image.BILINEAR,
+                'bicubic': Image.BICUBIC}[interp]
+    img = Image.fromarray(data)
+    img = img.resize((size[1], size[0]), resample=resample)
+    return np.asarray(img)
+
+
+def center_crop(x: np.ndarray, crop_h: int, crop_w: Optional[int],
+                resize_h: int = 64, resize_w: int = 64) -> np.ndarray:
+    """utils.py:138-145."""
+    if crop_w is None:
+        crop_w = crop_h
+    h, w = x.shape[:2]
+    j = int(round((h - crop_h) / 2.0))
+    i = int(round((w - crop_w) / 2.0))
+    return imresize(x[j:j + crop_h, i:i + crop_w], (resize_h, resize_w))
+
+
+def transform(image: np.ndarray, input_height: int, input_width: int,
+              resize_height: int = 64, resize_width: int = 64,
+              crop: bool = True) -> np.ndarray:
+    """utils.py:148-160: crop/resize then scale to [-1, 1]."""
+    if crop:
+        cropped = center_crop(image, input_height, input_width,
+                              resize_height, resize_width)
+    else:
+        cropped = imresize(image, (resize_height, resize_width))
+    return np.asarray(cropped, dtype=np.float64) / 127.5 - 1.0
+
+
+def inverse_transform(images: np.ndarray) -> np.ndarray:
+    """utils.py:163-164."""
+    return (images + 1.0) / 2.0

@@ -1,0 +1,125 @@
+"""The port's ops (edgegan_torch.ops, NCHW) against the JAX package's
+(edgegan_tpu.ops, NHWC) on the same numpy inputs, atol 1e-4."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from edgegan_tpu.ops import activations as jact
+from edgegan_tpu.ops import conv as jconv
+from edgegan_tpu.ops import norms as jnorms
+from edgegan_tpu.ops import pool as jpool
+from edgegan_torch.ops import activations as tact
+from edgegan_torch.ops import conv as tconv
+from edgegan_torch.ops import norms as tnorms
+from edgegan_torch.ops import pool as tpool
+
+ATOL = 1e-4
+
+
+def _nchw(x_nhwc):
+    return torch.from_numpy(np.ascontiguousarray(x_nhwc.transpose(0, 3, 1,
+                                                                  2)))
+
+
+def _nhwc(t):
+    return t.float().permute(0, 2, 3, 1).numpy()
+
+
+@pytest.mark.parametrize('shape,k,stride,pad', [
+    ((2, 9, 7, 3), 4, 1, 'SAME'),
+    ((2, 9, 7, 3), 5, 2, 'SAME'),
+    ((2, 8, 8, 5), 4, 2, 'SAME'),
+    ((2, 6, 6, 4), 3, 1, 'REFLECT'),
+    ((2, 6, 6, 4), 1, 1, 'REFLECT'),
+])
+def test_conv2d(shape, k, stride, pad):
+    rng = np.random.RandomState(0)
+    x = rng.randn(*shape).astype(np.float32)
+    w = rng.randn(k, k, shape[-1], 6).astype(np.float32)  # HWIO
+    ref = np.asarray(jconv.conv2d(jnp.asarray(x), jnp.asarray(w), stride,
+                                  pad))
+    got = tconv.conv2d(_nchw(x), torch.from_numpy(w.transpose(3, 2, 0, 1)),
+                       stride, pad)
+    np.testing.assert_allclose(_nhwc(got), ref, atol=ATOL)
+
+
+@pytest.mark.parametrize('in_hw,out_hw,k,stride', [
+    ((4, 4), (8, 8), 5, 2),
+    ((3, 5), (5, 9), 5, 2),
+    ((6, 6), (6, 6), 1, 1),
+])
+def test_deconv2d(in_hw, out_hw, k, stride):
+    rng = np.random.RandomState(1)
+    x = rng.randn(2, *in_hw, 6).astype(np.float32)
+    w = rng.randn(k, k, 10, 6).astype(np.float32)  # [k,k,out,in]
+    b = rng.randn(10).astype(np.float32)
+    ref = np.asarray(jconv.deconv2d(jnp.asarray(x), jnp.asarray(w), out_hw,
+                                    stride)) + b
+    got = tconv.deconv2d(_nchw(x), torch.from_numpy(w.transpose(3, 2, 0, 1)),
+                         out_hw, stride, torch.from_numpy(b))
+    assert got.is_contiguous()
+    np.testing.assert_allclose(_nhwc(got), ref, atol=ATOL)
+
+
+@pytest.mark.parametrize('case', ['f32', 'bf16', 'degenerate', 'unguarded'])
+def test_instance_norm(case, monkeypatch):
+    if case == 'unguarded':
+        monkeypatch.setenv('EDGEGAN_NAN_GUARDS', '0')
+    x = np.random.RandomState(2).randn(2, 8, 4, 4).astype(np.float32) * 3
+    if case == 'degenerate':
+        # a constant plane; H*W a power of two keeps the mean exact in
+        # both frameworks, so var is exactly 0
+        x[1, :, :, 2] = 0.75
+    if case == 'bf16':
+        xj = jnp.asarray(x, jnp.bfloat16)
+        xt = _nchw(x).to(torch.bfloat16)
+        # bfloat16 keeps 8 bits: one rounding of the normalised value
+        # (|y| <= ~3) differs between the frameworks by at most 2^-6
+        atol = 2 ** -5
+    else:
+        xj, xt, atol = jnp.asarray(x), _nchw(x), ATOL
+    ref = np.asarray(jnorms.instance_norm(xj).astype(jnp.float32))
+    got = _nhwc(tnorms.instance_norm(xt))
+    np.testing.assert_allclose(got, ref, atol=atol)
+    if case == 'degenerate':
+        assert np.all(got[1, :, :, 2] == 0)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_batch_norm(dtype):
+    rng = np.random.RandomState(3)
+    x = rng.randn(3, 4, 4, 5).astype(np.float32)
+    gamma = rng.randn(5).astype(np.float32)
+    beta = rng.randn(5).astype(np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    ref, rmean, rvar = jnorms.batch_norm(jnp.asarray(x, jdt),
+                                         jnp.asarray(gamma),
+                                         jnp.asarray(beta))
+    got, mean, var = tnorms.batch_norm(_nchw(x).to(tdt),
+                                       torch.from_numpy(gamma),
+                                       torch.from_numpy(beta))
+    assert got.dtype == tdt
+    atol = ATOL if dtype == 'float32' else 2 ** -4  # one bf16 rounding
+    np.testing.assert_allclose(_nhwc(got),
+                               np.asarray(ref.astype(jnp.float32)),
+                               atol=atol)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(rmean), atol=ATOL)
+    np.testing.assert_allclose(var.numpy(), np.asarray(rvar), atol=ATOL)
+
+
+@pytest.mark.parametrize('hw,window,stride', [
+    ((8, 6), 2, 2), ((7, 5), 2, 2), ((2, 2), 8, 8), ((5, 3), 8, 8)])
+def test_tf_avg_pool(hw, window, stride):
+    x = np.random.RandomState(4).randn(2, *hw, 3).astype(np.float32)
+    ref = np.asarray(jpool.tf_avg_pool(jnp.asarray(x), window, stride))
+    got = _nhwc(tpool.tf_avg_pool(_nchw(x), window, stride))
+    np.testing.assert_allclose(got, ref, atol=ATOL)
+
+
+@pytest.mark.parametrize('name', [None, 'relu', 'lrelu', 'tanh'])
+def test_activations(name):
+    x = np.random.RandomState(5).randn(4, 7).astype(np.float32)
+    ref = np.asarray(jact.activation_fn(jnp.asarray(x), name))
+    got = tact.activation_fn(torch.from_numpy(x), name).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-6)
