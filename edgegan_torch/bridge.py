@@ -2,16 +2,23 @@
 
 The JAX trees are nested dicts of numpy arrays keyed by the reference's
 scope names: `params` as `jax.tree.map(np.asarray, state.params)` gives
-it, and `aux` holding each network's `batch_stats` collection (carried
-over, though serving never reads it: quirk Q14). The port's modules use
-the same names, so the map is by name; only the layouts differ:
+it, and `aux` holding each network's other collections: `batch_stats`
+(carried over, never read: quirk Q14) and the classifier's `spectral`
+vectors `u` (frozen: quirk Q3). The port's modules use the same names, so
+the map is by name; only the layouts differ:
 
   conv kernel     HWIO [k,k,in,out]  -> OIHW [out,in,k,k]
+                  (Conv2D `w`, SNConv2D `weights`)
   deconv kernel   [k,k,out,in]       -> [in,out,k,k] (conv_transpose2d)
   dense matrix    [in,out]           -> [out,in] (F.linear)
+                  (Linear `Matrix`, Mlp `w`, SNDense `weights`)
   batch norm      `<name>_gamma` / `<name>_beta` params, and
                   `<name>_mean` / `<name>_var` in `batch_stats`
+  spectral norm   `aux[net]['spectral'][...path]['u']`, [1, out]
+  prelu           `param`, a 0-d scalar
 
+Only the networks a bundle holds cross the bridge: G1, G2 and E for
+inference, all seven for training (`Networks(..., critics=True)`).
 `save_npz` / `load_npz` keep the same trees as one flat npz whose keys
 are '/'-joined paths (`params/G1/g_lin_0/Matrix`, ...).
 """
@@ -23,34 +30,73 @@ import numpy as np
 import torch
 
 from .core.config import Config
-from .models.layers import BatchNorm, Conv2D, Deconv2D, Linear, Mlp
+from .models.layers import (BatchNorm, Conv2D, Deconv2D, Linear, Mlp,
+                            SNConv2D, SNDense)
 from .train.networks import Networks
-
-NETS = ('G1', 'G2', 'E')
 
 # torch tensor = JAX array.transpose(perm), by (module type, param name)
 _PERM = {(Conv2D, 'w'): (3, 2, 0, 1), (Deconv2D, 'w'): (3, 2, 0, 1),
-         (Linear, 'Matrix'): (1, 0), (Mlp, 'w'): (1, 0)}
+         (SNConv2D, 'weights'): (3, 2, 0, 1), (Linear, 'Matrix'): (1, 0),
+         (Mlp, 'w'): (1, 0), (SNDense, 'weights'): (1, 0)}
 
 
 def _entries(nets: Networks) -> Iterator[Tuple[str, Tuple[str, ...],
-                                               torch.Tensor, type]]:
-    """(collection, JAX key path, torch tensor, owning module type) for
-    every weight of G1, G2 and E."""
-    for net in NETS:
+                                               torch.Tensor, type, str]]:
+    """(collection, JAX key path, torch tensor, owning module type, torch
+    qualified name) for every weight and state vector of the networks
+    `nets` holds."""
+    for net in nets.names:
         for mod_name, mod in getattr(nets, net).named_modules():
             path = tuple(mod_name.split('.')) if mod_name else ()
+            qual = '.'.join((net, *path))
             if isinstance(mod, BatchNorm):
                 parent, leaf = path[:-1], path[-1]
                 for pname in ('gamma', 'beta'):
                     yield ('params', (net, *parent, f'{leaf}_{pname}'),
-                           getattr(mod, pname), BatchNorm)
+                           getattr(mod, pname), BatchNorm, f'{qual}.{pname}')
                 for bname in ('mean', 'var'):
                     yield ('aux', (net, 'batch_stats', f'{leaf}_{bname}'),
-                           getattr(mod, bname), BatchNorm)
+                           getattr(mod, bname), BatchNorm, f'{qual}.{bname}')
                 continue
             for pname, p in mod.named_parameters(recurse=False):
-                yield 'params', (net, *path, pname), p, type(mod)
+                yield ('params', (net, *path, pname), p, type(mod),
+                       f'{qual}.{pname}')
+            if isinstance(mod, (SNConv2D, SNDense)):
+                yield ('aux', (net, 'spectral', *path, 'u'), mod.u, type(mod),
+                       f'{qual}.u')
+
+
+def _contiguous(arr: np.ndarray) -> np.ndarray:
+    """np.ascontiguousarray, keeping a 0-d array 0-d."""
+    return np.ascontiguousarray(arr).reshape(arr.shape)
+
+
+def param_paths(nets: Networks) -> Dict[str, Tuple[Tuple[str, ...], type]]:
+    """torch qualified parameter name (as `nets.named_parameters()` gives
+    it, e.g. 'G1.g_norm_0.gamma') -> (JAX params path, module type)."""
+    return {qual: (path, kind)
+            for coll, path, _, kind, qual in _entries(nets)
+            if coll == 'params'}
+
+
+def to_jax_layout(t: torch.Tensor, kind: type, leaf: str) -> np.ndarray:
+    """A port tensor as a float32 numpy array of the JAX layout: a copy,
+    which later in-place updates of the tensor leave as it is."""
+    arr = t.detach().to('cpu', torch.float32, copy=True).numpy()
+    perm = _PERM.get((kind, leaf))
+    if perm is not None:
+        arr = arr.transpose(_inverse(perm))
+    return _contiguous(arr)
+
+
+def from_jax_layout(arr, kind: type, leaf: str) -> torch.Tensor:
+    """The inverse of `to_jax_layout`: a new CPU tensor (JAX's arrays are
+    read-only)."""
+    arr = np.asarray(arr)
+    perm = _PERM.get((kind, leaf))
+    if perm is not None:
+        arr = arr.transpose(perm)
+    return torch.from_numpy(np.array(arr, order='C'))
 
 
 def _get(tree, path):
@@ -80,27 +126,26 @@ def _inverse(perm):
 
 
 def load_jax_params(nets: Networks, params, aux) -> Networks:
-    """Copy the JAX trees of G1, G2 and E into `nets` (in place). Other
-    networks in the trees are ignored; a missing, extra or misshapen
-    weight of these three raises."""
+    """Copy the JAX trees of the networks `nets` holds into it (in
+    place). Other networks in the trees are ignored; a missing, extra or
+    misshapen weight of these raises."""
     trees = {'params': params, 'aux': aux}
     seen = set()
     with torch.no_grad():
-        for coll, path, t, kind in _entries(nets):
-            perm = _PERM.get((kind, path[-1]))
+        for coll, path, t, kind, _ in _entries(nets):
             try:
-                arr = np.asarray(_get(trees[coll], path))
+                arr = _get(trees[coll], path)
             except KeyError:
                 raise KeyError(f'{coll}/{"/".join(path)} missing') from None
-            if perm is not None:
-                arr = arr.transpose(perm)
-            if tuple(arr.shape) != tuple(t.shape):
+            src = from_jax_layout(arr, kind, path[-1])
+            if tuple(src.shape) != tuple(t.shape):
                 raise ValueError(f'{coll}/{"/".join(path)}: shape '
-                                 f'{arr.shape}, expected {tuple(t.shape)}')
-            t.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+                                 f'{tuple(src.shape)}, expected '
+                                 f'{tuple(t.shape)}')
+            t.copy_(src)
             seen.add((coll,) + path)
     for coll in ('params', 'aux'):
-        for net in NETS:
+        for net in nets.names:
             tree = trees[coll].get(net, {})
             extra = {(coll, net) + k for k in _flatten(tree)}
             extra -= seen
@@ -110,35 +155,41 @@ def load_jax_params(nets: Networks, params, aux) -> Networks:
 
 
 def export_jax_params(nets: Networks):
-    """The inverse of `load_jax_params`: (params, aux) numpy trees of G1,
-    G2 and E in the JAX layouts."""
-    trees = {'params': {}, 'aux': {net: {} for net in NETS}}
-    for coll, path, t, kind in _entries(nets):
-        arr = t.detach().float().cpu().numpy()
-        perm = _PERM.get((kind, path[-1]))
-        if perm is not None:
-            arr = arr.transpose(_inverse(perm))
-        _set(trees[coll], path, np.ascontiguousarray(arr))
+    """The inverse of `load_jax_params`: (params, aux) numpy trees of the
+    networks `nets` holds, in the JAX layouts."""
+    trees = {'params': {}, 'aux': {net: {} for net in nets.names}}
+    for coll, path, t, kind, _ in _entries(nets):
+        _set(trees[coll], path, to_jax_layout(t, kind, path[-1]))
     return trees['params'], trees['aux']
 
 
+def flatten_npz(**trees) -> Dict[str, np.ndarray]:
+    """Nested trees -> {'<tree name>/<path>': array}, the npz key scheme."""
+    return {'/'.join((name,) + k): v for name, tree in trees.items()
+            for k, v in _flatten(tree).items()}
+
+
+def unflatten_npz(data) -> Dict[str, dict]:
+    """The inverse of `flatten_npz`, from an open npz (or a dict)."""
+    trees: Dict[str, dict] = {}
+    for key in data.keys():
+        name, *rest = key.split('/')
+        _set(trees.setdefault(name, {}), tuple(rest), np.asarray(data[key]))
+    return trees
+
+
 def save_npz(path: str, params, aux):
-    flat = {'/'.join(('params',) + k): v for k, v in _flatten(params).items()}
-    flat.update({'/'.join(('aux',) + k): v
-                 for k, v in _flatten(aux).items()})
-    np.savez(path, **flat)
+    np.savez(path, **flatten_npz(params=params, aux=aux))
 
 
 def load_npz(path: str):
     """-> (params, aux) trees, as written by `save_npz`."""
-    trees = {'params': {}, 'aux': {}}
     with np.load(path) as data:
-        for key in data.files:
-            coll, *rest = key.split('/')
-            _set(trees[coll], tuple(rest), data[key])
-    for net in NETS:
-        trees['aux'].setdefault(net, {})
-    return trees['params'], trees['aux']
+        trees = unflatten_npz(data)
+    params, aux = trees.get('params', {}), trees.get('aux', {})
+    for net in params:  # a network with no aux leaves has an empty tree
+        aux.setdefault(net, {})
+    return params, aux
 
 
 def _trunc_normal(rng: np.random.Generator, shape, std: float):
@@ -152,16 +203,28 @@ def _trunc_normal(rng: np.random.Generator, shape, std: float):
     return out * (std / 0.87962566103423978)
 
 
-def random_jax_params(config: Config, seed: int = 0, gf_dim: int = 64):
-    """(params, aux) numpy trees of G1, G2 and E in the JAX layouts, drawn
-    with the reference initialisers: conv kernels truncated normal 0.02,
-    deconv kernels and dense matrices normal 0.02, biases and betas 0,
-    gammas 1, moving mean 0 and variance 1."""
+def _xavier_uniform(rng: np.random.Generator, shape):
+    """flax's glorot_uniform for a dense [in, out] matrix."""
+    limit = np.sqrt(6.0 / (shape[0] + shape[1]))
+    return rng.uniform(-limit, limit, shape)
+
+
+def random_jax_params(config: Config, seed: int = 0, gf_dim: int = 64,
+                      critics: bool = False, df_dim: int = 64):
+    """(params, aux) numpy trees in the JAX layouts for the networks of
+    `Networks(config, gf_dim, df_dim, critics=critics)`, drawn with the
+    reference initialisers (the JAX package's models/layers.py:35-40):
+    conv kernels truncated normal 0.02; deconv kernels, dense matrices and
+    the classifier's spectral-normed convs normal 0.02; its spectral-normed
+    dense layer xavier uniform; `u` truncated normal 1; PReLU leaks 0.2;
+    the MRU update gates' biases 0.5 (layers.py:377-381); other biases and
+    betas 0, gammas 1, moving mean 0 and variance 1."""
     with torch.device('meta'):
-        nets = Networks(config, gf_dim=gf_dim)
+        nets = Networks(config, gf_dim=gf_dim, df_dim=df_dim,
+                        critics=critics)
     rng = np.random.default_rng(seed)
-    trees = {'params': {}, 'aux': {net: {} for net in NETS}}
-    for coll, path, t, kind in _entries(nets):
+    trees = {'params': {}, 'aux': {net: {} for net in nets.names}}
+    for coll, path, t, kind, _ in _entries(nets):
         shape = tuple(t.shape)
         leaf = path[-1]
         perm = _PERM.get((kind, leaf))
@@ -169,8 +232,16 @@ def random_jax_params(config: Config, seed: int = 0, gf_dim: int = 64):
             shape = tuple(shape[i] for i in _inverse(perm))
         if kind is Conv2D and leaf == 'w':
             arr = _trunc_normal(rng, shape, 0.02)
+        elif kind is SNDense and leaf == 'weights':
+            arr = _xavier_uniform(rng, shape)
         elif perm is not None:
             arr = rng.normal(0.0, 0.02, shape)
+        elif leaf == 'u':
+            arr = _trunc_normal(rng, shape, 1.0)
+        elif leaf == 'param':
+            arr = np.full(shape, 0.2)
+        elif leaf == 'biases' and 'update_gate' in path:
+            arr = np.full(shape, 0.5)
         elif leaf.endswith('_gamma') or leaf.endswith('_var'):
             arr = np.ones(shape)
         else:

@@ -9,6 +9,7 @@ are kept for flag parity. `gpu` picks the CUDA device (`cuda:<gpu>`).
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from typing import Optional
 
@@ -98,6 +99,15 @@ class Config:
         cfg.logdir = os.path.join(path, 'logs')
         cfg.test_output_dir = os.path.join(path, 'test_output')
         return cfg
+
+    def save(self):
+        """Write <outputsroot>/<name>/flags.json (reference train.py:100-107)."""
+        path = os.path.join(self.outputsroot, self.name)
+        os.makedirs(path, exist_ok=True)
+        d = {k: (str(v) if v == float('inf') else v)
+             for k, v in dataclasses.asdict(self).items()}
+        with open(os.path.join(path, 'flags.json'), 'w') as f:
+            json.dump(d, f, indent=4)
 
     def device(self, kind: str = 'cuda') -> str:
         """The torch device for `kind` ('cuda' or 'cpu'): `cuda:<gpu>`."""

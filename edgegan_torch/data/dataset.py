@@ -1,0 +1,104 @@
+"""File-glob training dataset (reference utils/data/dataset.py; a copy of
+the JAX package's data/dataset.py:29-210, train listing, PIL decoding).
+
+Directory semantics kept exactly:
+  multiclass:  <dataroot>/<name>/train/<classid>/*.{png,jpg}
+  flat:        <dataroot>/<name>/train/*.png
+The class id is parsed from the parent directory's name; the last
+partial batch is dropped (quirk Q10). The shuffle is seeded by `seed`.
+
+z: with `host_z`, every batch carries its own N(0, 1) latents, derived
+from a counter (seed, shuffle generation, batch index) so that they do
+not depend on which prefetch thread decodes the batch, followed by the
+class-id column; without it (the default) only the class-id column is
+returned and the train step draws z on the device.
+
+Waiting: the test-phase listing (with `cli/test.py`) and the native C++
+decoder (`native_loader.py`).
+"""
+from __future__ import annotations
+
+import os
+from glob import glob
+from typing import Optional
+
+import numpy as np
+
+from ..utils.images import get_image
+
+
+class Dataset:
+    def __init__(self, dataroot: str, name: str, size, batchsize: int,
+                 config: dict, num_classes: Optional[int] = None,
+                 cache: bool = False, seed: int = 0, host_z: bool = False):
+        """`config` holds input_height/width, output_height/width, crop,
+        grayscale and z_dim. `cache=True` keeps every decoded image in
+        RAM after first use."""
+        self.batchsize = batchsize
+        self.num_classes = num_classes
+        self.config = config
+        self.cache = cache
+        self._cache: dict = {}
+        self.host_z = host_z
+        self._z_base = seed
+        self._shuffle_gen = 0
+        self.rng = np.random.RandomState(seed)
+        if num_classes is not None:
+            self.data = []
+            for i in range(num_classes):
+                for ext in ('*.png', '*.jpg'):
+                    self.data.extend(glob(os.path.join(
+                        dataroot, name, 'train', str(i), ext)))
+            data_path = os.path.join(dataroot, name, 'train')
+        else:
+            data_path = os.path.join(dataroot, name, 'train', '*.png')
+            self.data = glob(data_path)
+        if not self.data:
+            raise FileNotFoundError(f"[!] No data found in '{data_path}'")
+        if len(self.data) < batchsize:
+            raise ValueError('[!] Entire dataset size is less than the '
+                             'configured batch_size')
+        self.size = int(min(len(self.data), size))
+
+    def shuffle(self):
+        self.rng.shuffle(self.data)
+        self._shuffle_gen += 1  # advances the per-epoch z streams
+
+    def __len__(self):
+        return self.size // self.batchsize  # drops the last partial batch
+
+    def _load(self, f):
+        img = self._cache.get(f) if self.cache else None
+        if img is None:
+            img = np.asarray(get_image(
+                f, input_height=self.config['input_height'],
+                input_width=self.config['input_width'],
+                resize_height=self.config['output_height'],
+                resize_width=self.config['output_width'],
+                crop=self.config['crop'],
+                grayscale=self.config['grayscale']), np.float32)
+            if self.cache:
+                self._cache[f] = img
+        return img
+
+    def __getitem__(self, idx):
+        """-> (images [B, H, W, 3] float32 in [-1, 1], z [B, feed width]
+        float32, file names)."""
+        files = self.data[idx * self.batchsize:(idx + 1) * self.batchsize]
+        images = np.stack([self._load(f) for f in files])
+        classes = None
+        if self.num_classes is not None:
+            classes = np.array(
+                [int(os.path.basename(os.path.dirname(f))) for f in files],
+                np.float32).reshape(-1, 1)
+        if self.host_z:
+            zrng = np.random.default_rng(np.random.SeedSequence(
+                [self._z_base, 0, self._shuffle_gen, idx]))
+            z = zrng.normal(size=(len(files), self.config['z_dim'])).astype(
+                np.float32)
+            if classes is not None:
+                z = np.concatenate([z, classes], axis=1)
+        else:
+            z = (classes if classes is not None else
+                 np.zeros((len(files), 0), np.float32))
+        return images, z, files

@@ -2,10 +2,14 @@
 class).
 
 Submodule and parameter names are the JAX package's (`conv2d/w`,
-`deconv2d/b`, `Matrix`, `g_norm_0_gamma`, ...), so `bridge.py` maps the
-two trees by name; only the layouts differ (see `ops/conv.py`). Weights
-are made zero here and come in through the bridge. Each op casts its
-weight to the input dtype, as the JAX package does per op.
+`deconv2d/b`, `Matrix`, `g_norm_0_gamma`, `weights`, `prelu/param`, ...),
+so `bridge.py` maps the two trees by name; only the layouts differ (see
+`ops/conv.py`). Weights are made zero here and come in through the bridge.
+Every weight is a trainable parameter; serving runs under
+`torch.inference_mode()`, so it keeps no autograd state. The spectral-norm
+vectors `u` are buffers (the JAX package's `spectral` collection), never
+updated (quirk Q3). Each op casts its weight to the input dtype, as the
+JAX package does per op.
 """
 from __future__ import annotations
 
@@ -16,17 +20,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import activations, conv as conv_ops, kernels, norms
+from ..ops.pool import mean_pool
 
 
 def _param(*shape, fill: float = 0.0) -> nn.Parameter:
-    return nn.Parameter(torch.full(shape, fill), requires_grad=False)
+    return nn.Parameter(torch.full(shape, fill))
 
 
 class BatchNorm(nn.Module):
     """Train-mode batch norm (quirk Q14) with learnable gamma/beta. The
-    moving statistics are carried as buffers but never read, as in the
-    reference. `Networks.cast` keeps gamma/beta float32 in a bfloat16
-    copy, since the JAX package reads them as float32 (ops/norms.py:94)."""
+    moving statistics are carried as buffers but never read, and training
+    leaves them as they are, since the JAX step keeps `batch_stats`
+    immutable (layers.py:74-84). `Networks.cast` keeps gamma/beta float32
+    in a bfloat16 copy, since the JAX package reads them as float32
+    (ops/norms.py:94)."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -53,12 +60,16 @@ def norm_apply(x, norm: Optional[str]):
     raise ValueError(f'unknown norm: {norm!r}')
 
 
-def norm_act(x, norm: Optional[str], activation: Optional[str]):
+def norm_act(x, norm: Optional[str], activation: Optional[str],
+             allow_kernel: bool = True):
     """norm -> activation; instance norm with {None, relu, lrelu} goes to
-    the fused kernel K1 (layers.py:43-56 of the JAX package), except with
-    EDGEGAN_NAN_GUARDS=0, whose unguarded numerics the kernel does not
-    implement (pallas_kernels.py:44-56)."""
-    if (norm == 'instance' and activation in (None, 'relu', 'lrelu')
+    the fused kernels K1/K2 (layers.py:43-56 of the JAX package), except
+    with EDGEGAN_NAN_GUARDS=0, whose unguarded numerics the kernels do not
+    implement (pallas_kernels.py:44-56), and where the caller passes
+    `allow_kernel=False`: the critics, which WGAN-GP differentiates twice
+    while K2 is first-order only."""
+    if (allow_kernel and norm == 'instance'
+            and activation in (None, 'relu', 'lrelu')
             and norms.nan_guards_enabled()):
         return kernels.instance_norm_act(x, activation)
     return activations.activation_fn(norm_apply(x, norm), activation)
@@ -122,19 +133,22 @@ class Mlp(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """conv_block (reference conv.py:61-67): conv -> norm -> act."""
+    """conv_block (reference conv.py:61-67): conv -> norm -> act.
+    `allow_kernel` is the JAX package's `allow_pallas`."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int,
                  stride: int, norm: Optional[str] = None,
                  activation: Optional[str] = None, pad: str = 'SAME',
-                 use_bias: bool = False):
+                 use_bias: bool = False, allow_kernel: bool = True):
         super().__init__()
         self.norm, self.activation = norm, activation
+        self.allow_kernel = allow_kernel
         self.conv2d = Conv2D(in_ch, features, kernel_size, stride, pad,
                              use_bias)
 
     def forward(self, x):
-        return norm_act(self.conv2d(x), self.norm, self.activation)
+        return norm_act(self.conv2d(x), self.norm, self.activation,
+                        self.allow_kernel)
 
 
 class DeconvBlock(nn.Module):
@@ -170,3 +184,96 @@ class Residual(nn.Module):
         out = activations.relu(norm_apply(self.res1(x), self.norm))
         out = norm_apply(self.res2(out), self.norm)
         return activations.relu(self.shortcut(x) + out)
+
+
+class PReLU(nn.Module):
+    """prelu (reference activation.py:23-27): a learnable scalar leak,
+    float32, initialised to 0.2. The plain backward splits the tie at
+    x == 0 evenly, as the JAX package's default path does
+    (layers.py:273-277); its fused backward (K5) is not ported."""
+
+    def __init__(self):
+        super().__init__()
+        self.param = _param(fill=0.2)
+
+    def forward(self, x):
+        return activations.prelu(x, self.param.to(x.dtype))
+
+
+class SNConv2D(nn.Module):
+    """conv2d2 (reference conv.py:246-295): stride-1 SAME conv with
+    spectral norm, bias and an activation in {None, relu, lrelu, prelu}.
+    Weights OIHW; `u` [1, out] is a buffer (the `spectral` collection)."""
+
+    def __init__(self, in_ch: int, features: int, kernel_size: int,
+                 activation: Optional[str] = None):
+        super().__init__()
+        self.activation = activation
+        self.weights = _param(features, in_ch, kernel_size, kernel_size)
+        self.register_buffer('u', torch.zeros(1, features))
+        self.biases = _param(features)
+        if activation == 'prelu':
+            self.prelu = PReLU()
+
+    def forward(self, x):
+        w, _ = norms.spectral_normalize(self.weights, self.u)
+        out = conv_ops.conv2d(x, w, 1, 'SAME', self.biases)
+        if self.activation == 'prelu':
+            return self.prelu(out)
+        return activations.activation_fn(out, self.activation)
+
+
+class SNDense(nn.Module):
+    """fully_connected (reference linear.py:34-77): spectral-normed dense
+    layer. Weights [out, in]; `u` [1, out] is a buffer."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.weights = _param(features, in_features)
+        self.register_buffer('u', torch.zeros(1, features))
+        self.biases = _param(features)
+
+    def forward(self, x):
+        w, _ = norms.spectral_normalize(self.weights, self.u)
+        return F.linear(x, w.to(x.dtype), self.biases.to(x.dtype))
+
+
+class MRUBlock(nn.Module):
+    """mru_conv_block_v3 (reference conv.py:133-243), the classifier's
+    stride-2 unit: a min-max-normalised update gate blends an input conv
+    into the hidden state, two 3x3 convs make the new hidden state, added
+    to a 1x1-projected residual (every unit of the classifier changes the
+    depth), then a 2x2 mean pool.
+
+    The gate's min and max are `amin`/`amax`, whose backward splits tied
+    extrema evenly, as `jnp.min`/`jnp.max` do (`max(dim)` does not). A
+    spatially constant gate is guarded to a zero gate unless
+    EDGEGAN_NAN_GUARDS=0. The fused gate (K3/K4) is not ported: this is
+    the JAX package's default path (layers.py:386-406).
+    """
+
+    def __init__(self, in_ch: int, hidden_depth: int, filter_depth: int):
+        super().__init__()
+        self.norm_activation_in_prelu = PReLU()
+        self.update_gate = SNConv2D(hidden_depth + in_ch, hidden_depth, 3,
+                                    activation='lrelu')
+        self.img_conv = SNConv2D(in_ch, hidden_depth, 3)
+        self.norm_activation_merge_1_prelu = PReLU()
+        self.h_conv1 = SNConv2D(hidden_depth, filter_depth, 3,
+                                activation='prelu')
+        self.h_conv2 = SNConv2D(filter_depth, filter_depth, 3)
+        self.shortcut = SNConv2D(hidden_depth, filter_depth, 1)
+
+    def forward(self, inp, ht):
+        full_inp = torch.cat([self.norm_activation_in_prelu(ht), inp], dim=1)
+        rg = self.update_gate(full_inp)
+        img_new = self.img_conv(inp)
+        rg_min = rg.amin(dim=(2, 3), keepdim=True)
+        rg_range = rg.amax(dim=(2, 3), keepdim=True) - rg_min
+        if norms.nan_guards_enabled():
+            rg_range = torch.where(rg_range > 0, rg_range,
+                                   torch.ones_like(rg_range))
+        ht_plus = ht + (rg - rg_min) / rg_range * img_new
+        h_new = self.h_conv1(self.norm_activation_merge_1_prelu(ht_plus))
+        h_new = self.h_conv2(h_new)
+        return mean_pool(self.shortcut(ht) + h_new)

@@ -73,10 +73,14 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            fn = lib.edgegan_instance_norm_act_fwd
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                           ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+            # (x, y, planes, hw, dtype, act, stream)
+            fwd = lib.edgegan_instance_norm_act_fwd
+            fwd.argtypes = [ptr, ptr, i64, i64, i32, i32, ptr]
+            # (x, g, dx, planes, hw, dtype, act, stream)
+            bwd = lib.edgegan_instance_norm_act_bwd
+            bwd.argtypes = [ptr, ptr, ptr, i64, i64, i32, i32, ptr]
+            for fn in (fwd, bwd):
+                fn.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -15,6 +15,13 @@ def lrelu(x, leak: float = 0.2):
     return torch.maximum(x, leak * x)
 
 
+def prelu(x, leak):
+    """PReLU with a learnable scalar leak, `max(leak*x, x)` (reference
+    activation.py:23-27). At a tie (x == 0) `torch.maximum` splits the
+    cotangent 0.5/0.5, as `jnp.maximum` does."""
+    return torch.maximum(leak * x, x)
+
+
 def activation_fn(x, name: Optional[str]):
     """Dispatch by name (reference activation.py:4-15)."""
     if name is None:

@@ -5,6 +5,8 @@
 - batch_norm: train-mode batch statistics (the reference hard-codes
   `is_training=True`, quirk Q14), learnable gamma/beta, eps INSIDE the
   sqrt, computed in float32 and cast back.
+- spectral_normalize: one power iteration from a stored `u` (reference
+  normalization.py:38-76); `u` itself stays frozen (quirk Q3).
 
 Statistics are float32 whatever the input dtype.
 """
@@ -61,3 +63,25 @@ def batch_norm(x, gamma, beta, eps: float = 1e-5):
     out = out * gamma.float().view(1, -1, 1, 1) + beta.float().view(
         1, -1, 1, 1)
     return out.to(x.dtype), mean.reshape(-1), var.reshape(-1)
+
+
+def _l2normalize(v, eps: float = 1e-12):
+    """v / (sqrt(sum(v^2)) + eps) (reference normalization.py:35-36)."""
+    return v / (torch.sum(v * v) ** 0.5 + eps)
+
+
+def spectral_normalize(w, u):
+    """One power-iteration step from `u` [1, out]; returns (w_bar, u_new).
+
+    `w` is in the port's layout, output channels first (OIHW for a conv,
+    [out, in] for a dense layer). Its matrix `[-1, out]` is the
+    reference's (normalization.py:39-40) up to the order of its rows,
+    which leaves sigma unchanged. The gradient flows through sigma and
+    through the iteration, as it does in the JAX package; u_new is not
+    detached either, and the caller decides whether to keep it.
+    """
+    w_mat = w.reshape(w.shape[0], -1).t().float()
+    v = _l2normalize(u.float() @ w_mat.t())
+    u_new = _l2normalize(v @ w_mat)
+    sigma = (v @ w_mat @ u_new.t())[0, 0]
+    return (w.float() / sigma).to(w.dtype), u_new.to(u.dtype)

@@ -1,4 +1,9 @@
-"""Pooling, NCHW."""
+"""Pooling, NCHW.
+
+- `mean_pool`: the reference's 2x2 average (pooling.py:4-8), used by the
+  classifier's pyramid and its MRU units.
+- `tf_avg_pool`: tf.nn.avg_pool SAME, padding left out of the divisor.
+"""
 from __future__ import annotations
 
 import functools
@@ -23,10 +28,21 @@ def _axis_counts(in_size: int, window: int, stride: int) -> np.ndarray:
 @functools.lru_cache(maxsize=64)
 def _counts(h: int, w: int, window: int, stride: int, device: torch.device):
     """The static divisor matrix, copied to the device once per shape (a
-    copy from pageable memory on every call would stall the host)."""
+    copy from pageable memory on every call would stall the host). Made
+    outside inference mode, so that a matrix first cached by serving can
+    be saved for backward by training in the same process."""
     counts = np.outer(_axis_counts(h, window, stride),
                       _axis_counts(w, window, stride))
-    return torch.from_numpy(counts).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(counts).to(device)
+
+
+def mean_pool(x):
+    """2x2 average over non-overlapping windows of NCHW `x`; H and W even."""
+    b, c, h, w = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f'mean_pool needs even H and W, got {h}x{w}')
+    return x.reshape(b, c, h // 2, 2, w // 2, 2).mean(dim=(3, 5))
 
 
 def tf_avg_pool(x, window: int, stride: int):

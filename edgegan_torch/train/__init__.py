@@ -1,1 +1,2 @@
-"""Network bundle (the G1/G2/E subset so far)."""
+"""Training: the network bundle, the TF1 RMSProp state and the fused
+7-group step."""

@@ -1,26 +1,32 @@
-"""Network bundle: the G1/G2/E subset of the JAX package's `Networks`
-(train/networks.py:27-142), the part that inference and serving run.
+"""Network bundle (the JAX package's train/networks.py:27-142).
 
-Submodule names are the reference's variable scopes ('G1', 'G2', 'E'),
-so `bridge.py` maps the JAX parameter trees onto them by name. The
-critics and the classifier come with the training slice.
+Submodule names are the reference's variable scopes ('G1', 'G2', 'D',
+'D_patch2', 'D_patch3', 'D2', 'E'), so `bridge.py` maps the JAX parameter
+trees onto them by name. Inference and serving build G1, G2 and E only;
+training (`critics=True`) adds the joint critic D over the full pair, the
+image and edge patch critics over bicubic crops (when enabled) and the
+classifier D2 (multiclass only).
 """
 from __future__ import annotations
 
 import copy
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import Config
+from ..models.classifier import Classifier
+from ..models.discriminator import Discriminator
 from ..models.encoder import Encoder
 from ..models.generator import Generator
 from ..models.layers import BatchNorm
 
 
 class Networks(nn.Module):
-    def __init__(self, config: Config, gf_dim: int = 64, c_dim: int = 3):
+    def __init__(self, config: Config, gf_dim: int = 64, df_dim: int = 64,
+                 c_dim: int = 3, critics: bool = False):
         super().__init__()
         self.config = config
         self.z_dim = config.z_dim
@@ -31,9 +37,28 @@ class Networks(nn.Module):
                    use_resnet=config.if_resnet_g)
         self.G1 = Generator(**gen)   # edge generator
         self.G2 = Generator(**gen)   # image generator
+        if critics:
+            dis = dict(num_filters=df_dim, norm=config.D_norm,
+                       use_resnet=config.if_resnet_d, in_ch=c_dim)
+            self.D = Discriminator(
+                (config.output_height, config.output_width), **dis)
+            if config.use_image_discriminator:
+                self.D_patch2 = Discriminator((config.image_dis_size,) * 2,
+                                              **dis)
+            if config.use_edge_discriminator:
+                self.D_patch3 = Discriminator((config.edge_dis_size,) * 2,
+                                              **dis)
+            if config.multiclasses:
+                self.D2 = Classifier(config.num_classes, in_ch=c_dim)
         self.E = Encoder(latent_dim=config.z_dim,
                          image_size=config.input_height, norm=config.E_norm,
                          use_resnet=config.if_resnet_e, in_ch=c_dim)
+
+    @property
+    def names(self) -> Tuple[str, ...]:
+        """The networks this bundle holds, in the reference's order."""
+        return tuple(n for n in ('G1', 'G2', 'D', 'D_patch2', 'D_patch3',
+                                 'D2', 'E') if hasattr(self, n))
 
     @property
     def gen_input_dim(self) -> int:
@@ -55,6 +80,14 @@ class Networks(nn.Module):
     def generate(self, z_in):
         """Both generators on one latent -> NCHW (edge, image) halves."""
         return self.G1(z_in), self.G2(z_in)
+
+    def discriminate(self, name: str, x):
+        """Critic `name` ('D', 'D_patch2', 'D_patch3') -> (sigmoid, logit)."""
+        return getattr(self, name)(x)
+
+    def classify(self, x):
+        """NCHW photo half -> (disc, sigmoid(logits), logits)."""
+        return self.D2(x)
 
     def cast(self, dtype: torch.dtype) -> 'Networks':
         """A copy with every weight in `dtype`, made once (the JAX package

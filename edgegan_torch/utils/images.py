@@ -1,6 +1,6 @@
-"""Host-side image transforms for the PNG route (numpy + PIL).
+"""Host-side image I/O and transforms for the PNG route (numpy + PIL).
 
-A copy of the JAX package's utils/images.py:22-86, which matches the
+A copy of the JAX package's utils/images.py:22-96, which matches the
 reference's scipy.misc behaviour: `imresize` on a float array first
 stretches the array's own [min, max] onto [0, 255] (`bytescale`), and
 saving stretches again.
@@ -26,6 +26,13 @@ def bytescale(data: np.ndarray, cmin: Optional[float] = None,
     scale = 255.0 / cscale
     out = (data - cmin) * scale + 0.4999  # scipy rounds via +0.5 cast
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def imread(path: str, grayscale: bool = False) -> np.ndarray:
+    """scipy.misc.imread (utils.py:126-130): a float array."""
+    img = Image.open(path)
+    img = img.convert('F' if grayscale else 'RGB')
+    return np.asarray(img, dtype=np.float64)
 
 
 def imresize(arr: np.ndarray, size: Tuple[int, int],
@@ -66,3 +73,11 @@ def transform(image: np.ndarray, input_height: int, input_width: int,
 def inverse_transform(images: np.ndarray) -> np.ndarray:
     """utils.py:163-164."""
     return (images + 1.0) / 2.0
+
+
+def get_image(path: str, input_height: int, input_width: int,
+              resize_height: int = 64, resize_width: int = 64,
+              crop: bool = True, grayscale: bool = False) -> np.ndarray:
+    """utils.py:41-50: read, crop/resize, scale to [-1, 1]."""
+    return transform(imread(path, grayscale), input_height, input_width,
+                     resize_height, resize_width, crop)

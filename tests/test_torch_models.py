@@ -105,7 +105,8 @@ def test_generators_match_jax(small):
     z = np.random.RandomState(2).randn(3, small.nets.gen_input_dim).astype(
         np.float32)
     refs = small.jnets.generate(small.params, small.aux, jnp.asarray(z))
-    gots = small.nets.generate(torch.from_numpy(z))
+    with torch.no_grad():  # the weights are trainable parameters
+        gots = small.nets.generate(torch.from_numpy(z))
     for got, ref in zip(gots, refs):
         np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
                                    np.asarray(ref), atol=2e-4)
@@ -117,8 +118,9 @@ def test_encoder_matches_jax(small):
     key = jax.random.PRNGKey(5)
     z, mu, ls = small._encode(left, key)
     eps = (np.asarray(z) - np.asarray(mu)) / np.exp(np.asarray(ls))
-    got = small.nets.encode(torch.from_numpy(left).permute(0, 3, 1, 2),
-                            torch.tensor(float(np.mean(eps))))
+    with torch.no_grad():
+        got = small.nets.encode(torch.from_numpy(left).permute(0, 3, 1, 2),
+                                torch.tensor(float(np.mean(eps))))
     for g, r in zip(got, (z, mu, ls)):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=2e-4)
 
