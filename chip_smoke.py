@@ -8,7 +8,8 @@ network. It exits non-zero, printing no result, when there is no card or
 the package is missing, and on any failed check.
 
 1. Prints the card's name and power limit (nvidia-smi) and builds the
-   hand-written kernels from edgegan_torch/csrc (nvcc, sm_90a).
+   hand-written kernels from edgegan_torch/csrc (nvcc, sm_90a, one
+   process per source).
 2. K1 phase: `instance_norm_act` against its plain PyTorch version on the
    card, at the three shapes the generators give it (batch 16 and 64,
    float32 and bfloat16, no activation / relu / lrelu, one constant plane
@@ -18,29 +19,49 @@ the package is missing, and on any failed check.
 3. K2 phase: `instance_norm_act_bwd` the same way against
    `instance_norm_act_bwd_plain`, and the autograd Function's gradient
    (K1 forward, K2 backward) against autograd of the plain forward.
-4. Serving phase at full width: the default test configuration (64x128
+4. K5 phase: `prelu_bwd` against `prelu_bwd_plain` at the classifier's 14
+   PReLU shapes at batch 64, float32 and bfloat16, leaks 0.2 and 1.5,
+   exact zeros in x: dx within K1's limits, dleak within DLEAK_RTOL of the
+   sum of |terms| from a float64 sum on the card. Times per call and per
+   training step beside the byte bound, the plain version's and the
+   backward of F.prelu's (a yardstick: no tie split, and the same
+   function only for 0 <= leak <= 1); and the Function's gradients.
+5. K3/K4 phase: `mru_gate_blend` and `mru_gate_bwd` against their plain
+   versions at the classifier's four gate shapes at batch 64, float32 and
+   bfloat16, one flat plane and one tie in each; the Function's three
+   gradients against autograd of the plain chain; times beside the bounds
+   and the plain versions' (no single PyTorch call computes either).
+6. Serving phase at full width: the default test configuration (64x128
    pairs, 14 classes, z_dim 100, gf_dim 64) with random weights from
    `bridge.random_jax_params` through the bridge, a `Batcher` on cuda
    behind `make_server` on 127.0.0.1, answering real HTTP requests. K1
    must have been launched 6 times per batch. One float32 batch is held
    against the port's CPU forward, and the time per batch is measured
    and split by `torch.profiler` into device work and device idle time.
-5. Training phase at full width: `python -m edgegan_torch.cli.train`'s
+7. Training phase at full width: `python -m edgegan_torch.cli.train`'s
    `main` with the default training configuration (batch 64, 14 classes,
    float32, faithful 7-group step) on a synthetic PNG dataset of two
    batches per epoch, for 2 epochs (4 steps, checkpoints 2 and 5), then
-   again for 1 epoch, which must resume at counter 5. Every metric must
-   be finite, every optimizer group must move, and K1 and K2 must launch
-   21 and 12 times per step.
-6. One training step at full width and batch 4 on the card against the
-   same step on the CPU, from the same weights and random draws.
-7. Time per training step at batch 64 (CUDA events and host clock), its
-   device time per optimizer group, and its `torch.profiler` split.
-8. Prints one JSON line describing every kernel, then
+   again for 1 epoch, which must resume at counter 5; then a fresh run of
+   2 steps with `--dtype bfloat16` and both classifier switches on
+   (EDGEGAN_PALLAS_PRELU=1, EDGEGAN_PALLAS_GATE=1). Every metric must be
+   finite, every optimizer group must move, and the kernels must launch
+   K1 21, K2 12 times per step, and K5 42, K3 12, K4 12 times per step
+   with the switches on, 0 with them off (the default).
+8. One training step at full width and batch 4 on the card against the
+   same step on the CPU, from the same weights and random draws; and a
+   second card step with both switches on, against the same CPU step.
+9. Time per training step at batch 64 (CUDA events and host clock, peak
+   memory) in float32 and bfloat16, switches off and on (in turns: off,
+   on, on, off); device time per optimizer group and the `torch.profiler`
+   split for float32 switches off and bfloat16 switches on, with each
+   kernel's device time per step.
+10. Prints one JSON line describing every kernel, then
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 from __future__ import annotations
 
+import contextlib
 import http.client
 import io
 import json
@@ -74,6 +95,28 @@ K2_TOL = {'float32': dict(atol=1e-4, rtol=1e-4),
 GATE_BAND = 1e-4
 K1_PER_STEP = 21   # 7 generator forwards (G1 alone for the encoder's input)
 K2_PER_STEP = 12   # 2 generator updates x (G1, G2) x 3 DeconvBlocks
+# The classifier at batch 64 on the 64x64 photo half, (C, H, W) with the
+# number of calls per pass: its 14 PReLUs (the stem's; per MRU unit the
+# hidden state's, the merge's and h_conv1's; the last) and its 4 MRU gates
+PRELU_SHAPES = [((8, 64, 64), 3), ((128, 64, 64), 1), ((128, 32, 32), 2),
+                ((256, 32, 32), 1), ((256, 16, 16), 2), ((512, 16, 16), 1),
+                ((512, 8, 8), 2), ((768, 8, 8), 1), ((768, 4, 4), 1)]
+GATE_SHAPES = [(8, 64, 64), (128, 32, 32), (256, 16, 16), (512, 8, 8)]
+CLASSIFIER_PASSES = 3   # per step: group 4 and both generator updates
+K5_PER_STEP = 14 * CLASSIFIER_PASSES
+K3_PER_STEP = K4_PER_STEP = 4 * CLASSIFIER_PASSES
+# float32 operations per element: K5 mul, 2 compares, select, fma, mul,
+# mul, add; K3 min, max, sub, div, mul, add; K4 min, max, then sub, div,
+# mul, mul, sub, 2 mul-adds, add, 2 compares, 2 adds, then mul, div,
+# 2 compares, 2 adds
+K5_OPS_PER_ELEMENT = 8
+K3_OPS_PER_ELEMENT = 6
+K4_OPS_PER_ELEMENT = 22
+# K5's dleak is a float32 sum of up to 33.5M terms in a fixed tree (about
+# 124 terms per thread, then warp, block and partial sums): held to a
+# float64 sum within DLEAK_RTOL of the sum of |terms|
+DLEAK_RTOL = 1e-5
+SWITCHES = ('EDGEGAN_PALLAS_PRELU', 'EDGEGAN_PALLAS_GATE')
 
 
 def check(cond, msg):
@@ -293,6 +336,228 @@ def k2_phase(card: str):
     return max_err, per_batch
 
 
+@contextlib.contextmanager
+def classifier_switches(on: bool):
+    """Both classifier switches set to 1 (on) or unset (off, the default),
+    restored afterwards."""
+    saved = {k: os.environ.get(k) for k in SWITCHES}
+    for k in SWITCHES:
+        if on:
+            os.environ[k] = '1'
+        else:
+            os.environ.pop(k, None)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def bounds_ms(n: int, itemsize: int, tensors: int, ops_per_element: int):
+    """(bytes, operations) lower bounds of a call over `n` elements that
+    reads or writes `tensors` tensors of `itemsize` bytes once each and
+    does `ops_per_element` float32 operations per element."""
+    return (1e3 * tensors * n * itemsize / HBM_BYTES_PER_S,
+            1e3 * ops_per_element * n / F32_OPS_PER_S)
+
+
+def _dleak64(x, g, leak):
+    """K5's dleak from a float64 sum on the card, and the sum of the
+    terms' magnitudes (its scale)."""
+    import torch
+    x64, g64 = x.double(), g.double()
+    u = leak.double() * x64
+    s_u = torch.where(u > x64, 1.0, torch.where(u == x64, 0.5, 0.0))
+    terms = g64 * s_u.double() * x64
+    return terms.sum().item(), terms.abs().sum().item()
+
+
+TIME_KEYS = ('ms', 'plain_ms', 'bytes_ms', 'ops_ms', 'yardstick_ms')
+
+
+def k5_phase(card: str):
+    """K5 against its plain version at the classifier's PReLU shapes, and
+    the Function's gradients against autograd of the plain forward;
+    returns the numbers for the JSON line (times per training step)."""
+    import torch
+    import torch.nn.functional as F
+
+    from edgegan_torch.ops import kernels
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(5)
+    max_err = {'float32': 0.0, 'bfloat16': 0.0}
+    dleak_err = 0.0
+    per_step = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split('.')[-1]
+        tol = TOL[dname]
+        sums = dict.fromkeys(TIME_KEYS, 0.0)
+        for (c, h, w), calls in PRELU_SHAPES:
+            shape = (64, c, h, w)
+            x = (torch.randn(shape, device=dev, generator=gen) * 2).to(dtype)
+            x[:, :, 0, :] = 0.0   # exact zeros: the tie leak*x == x
+            g = torch.randn(shape, device=dev, generator=gen).to(dtype)
+            for leak in (0.2, 1.5):
+                lk = torch.tensor(leak, device=dev)
+                dx, dleak = kernels.prelu_bwd(x, g, lk)
+                ref, _ = kernels.prelu_bwd_plain(x, g, lk)
+                d64, scale = _dleak64(x, g, lk)
+                torch.cuda.synchronize()
+                err, ok, _ = _close(dx, ref, tol)
+                derr = abs(dleak.item() - d64) / scale
+                print(f'K5 {dname} {list(shape)} leak {leak}: dx max abs '
+                      f'diff {err:.3g} (limit atol {tol["atol"]} rtol '
+                      f'{tol["rtol"]}); dleak {dleak.item():.7g} vs float64 '
+                      f'{d64:.7g}, diff {derr:.3g} of sum|terms| (limit '
+                      f'{DLEAK_RTOL})')
+                check(ok, f'K5 {dname} {shape} leak {leak}: dx differs')
+                check(derr <= DLEAK_RTOL, f'K5 {dname} {shape} leak {leak}: '
+                      'dleak differs')
+                max_err[dname] = max(max_err[dname], err)
+                dleak_err = max(dleak_err, derr)
+            lk = torch.tensor(0.2, device=dev)
+            ms = cuda_ms(lambda: kernels.prelu_bwd(x, g, lk), 50)
+            plain = cuda_ms(lambda: kernels.prelu_bwd_plain(x, g, lk), 10)
+            xr = x.detach().requires_grad_(True)
+            wr = lk.to(dtype).reshape(1).requires_grad_(True)
+            yr = F.prelu(xr, wr)
+            yard = cuda_ms(lambda: torch.autograd.grad(
+                yr, (xr, wr), g, retain_graph=True), 20)
+            by_bytes, by_ops = bounds_ms(x.numel(), x.element_size(), 3,
+                                         K5_OPS_PER_ELEMENT)
+            print(f'K5 time {dname} {list(shape)}: {ms:.4f} ms, bound '
+                  f'{max(by_bytes, by_ops):.4f} ms (bytes {by_bytes:.4f}, '
+                  f'operations {by_ops:.4f}), plain {plain:.4f} ms, '
+                  f'backward of F.prelu {yard:.4f} ms (a yardstick: no tie '
+                  f'split) x {calls} calls per pass [{card}]')
+            for k, v in zip(TIME_KEYS, (ms, plain, by_bytes, by_ops, yard)):
+                sums[k] += calls * v
+        per_step[dname] = {k: CLASSIFIER_PASSES * v for k, v in sums.items()}
+        print(f'K5 per training step ({K5_PER_STEP} calls) at batch 64 '
+              f'{dname}: ' + ', '.join(f'{k} {v:.4f}' for k, v in
+                                        per_step[dname].items())
+              + f' [{card}]')
+
+    # the Function: plain forward, K5 backward, against autograd of the
+    # plain forward
+    shape = (64, 128, 32, 32)
+    x = torch.randn(shape, device=dev, generator=gen)
+    x[:, :, 0, :] = 0.0
+    x.requires_grad_(True)
+    lk = torch.tensor(0.2, device=dev, requires_grad=True)
+    g = torch.randn(shape, device=dev, generator=gen)
+    before = kernels.LAUNCHES['prelu_bwd']
+    dx, dleak = torch.autograd.grad(kernels.prelu(x, lk), (x, lk), g)
+    torch.cuda.synchronize()
+    check(kernels.LAUNCHES['prelu_bwd'] == before + 1,
+          'the PReLU Function did not launch K5 once')
+    ref, rleak = torch.autograd.grad(torch.maximum(lk * x, x), (x, lk), g)
+    _, scale = _dleak64(x.detach(), g, lk.detach())
+    err, ok, _ = _close(dx, ref, TOL['float32'])
+    derr = abs(dleak.item() - rleak.item()) / scale
+    print(f'Function (K5 backward) float32 {list(shape)}: dx vs autograd of '
+          f'the plain forward max abs diff {err:.3g}, dleak diff {derr:.3g} '
+          f'of sum|terms| (limit {2 * DLEAK_RTOL}: two float32 sums)')
+    check(ok and derr <= 2 * DLEAK_RTOL, 'the PReLU Function gradient '
+          'differs from autograd of the plain forward')
+    return max_err, dleak_err, per_step
+
+
+def gate_phase(card: str):
+    """K3 and K4 against their plain versions at the classifier's gate
+    shapes, and the Function's gradients against autograd of the plain
+    chain; returns the numbers for the JSON line (times per step)."""
+    import torch
+
+    from edgegan_torch.ops import kernels
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(6)
+    max_err = {'K3': {'float32': 0.0, 'bfloat16': 0.0},
+               'K4': {'float32': 0.0, 'bfloat16': 0.0}}
+    per_step = {'K3': {}, 'K4': {}}
+
+    def gate_inputs(shape, dtype):
+        rg, ht, img, g = (torch.randn(shape, device=dev, generator=gen).to(
+            dtype) for _ in range(4))
+        rg[0, 0] = 1.5                               # a flat plane
+        top = rg[1, 1].max()
+        rg[1, 1, 0, 0] = rg[1, 1, -1, -1] = top      # a tie at its maximum
+        return rg, ht, img, g
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split('.')[-1]
+        sums = {k: dict.fromkeys(TIME_KEYS[:4], 0.0) for k in ('K3', 'K4')}
+        for c, h, w in GATE_SHAPES:
+            shape = (64, c, h, w)
+            rg, ht, img, g = gate_inputs(shape, dtype)
+            out = kernels.mru_gate_blend(rg, ht, img)
+            drg, dimg = kernels.mru_gate_bwd(rg, img, g)
+            ref = kernels.mru_gate_blend_plain(rg, ht, img)
+            rdrg, rdimg = kernels.mru_gate_bwd_plain(rg, img, g)
+            torch.cuda.synchronize()
+            for kname, got, want, tol in (
+                    ('K3 out', out, ref, TOL[dname]),
+                    ('K4 drg', drg, rdrg, K2_TOL[dname]),
+                    ('K4 dimg', dimg, rdimg, K2_TOL[dname])):
+                err, ok, _ = _close(got, want, tol)
+                print(f'{kname} {dname} {list(shape)}: max abs diff '
+                      f'{err:.3g} (limit atol {tol["atol"]} rtol '
+                      f'{tol["rtol"]})')
+                check(ok, f'{kname} {dname} {shape} differs from plain')
+                check(bool(torch.isfinite(got.float()).all()),
+                      f'{kname} {dname} {shape} not finite')
+                key = kname[:2]
+                max_err[key][dname] = max(max_err[key][dname], err)
+            n, item = rg.numel(), rg.element_size()
+            for key, fn, plain_fn, tensors, ops in (
+                    ('K3', lambda: kernels.mru_gate_blend(rg, ht, img),
+                     lambda: kernels.mru_gate_blend_plain(rg, ht, img), 4,
+                     K3_OPS_PER_ELEMENT),
+                    ('K4', lambda: kernels.mru_gate_bwd(rg, img, g),
+                     lambda: kernels.mru_gate_bwd_plain(rg, img, g), 5,
+                     K4_OPS_PER_ELEMENT)):
+                ms, plain = cuda_ms(fn, 100), cuda_ms(plain_fn, 20)
+                by_bytes, by_ops = bounds_ms(n, item, tensors, ops)
+                print(f'{key} time {dname} {list(shape)}: {ms:.4f} ms, '
+                      f'bound {max(by_bytes, by_ops):.4f} ms (bytes '
+                      f'{by_bytes:.4f}, operations {by_ops:.4f}), plain '
+                      f'{plain:.4f} ms; no single PyTorch call computes '
+                      f'it [{card}]')
+                for k, v in zip(TIME_KEYS, (ms, plain, by_bytes, by_ops)):
+                    sums[key][k] += v
+        for key in ('K3', 'K4'):
+            per_step[key][dname] = {k: CLASSIFIER_PASSES * v
+                                    for k, v in sums[key].items()}
+            print(f'{key} per training step ({K3_PER_STEP} calls) at batch '
+                  f'64 {dname}: ' + ', '.join(
+                      f'{k} {v:.4f}' for k, v in per_step[key][dname].items())
+                  + f' [{card}]')
+
+    # the Function: K3 forward, K4 backward and dht = g, against autograd
+    # of the plain chain
+    shape = (64,) + GATE_SHAPES[1]
+    ins = [t.requires_grad_(True)
+           for t in gate_inputs(shape, torch.float32)[:3]]
+    g = torch.randn(shape, device=dev, generator=gen)
+    before = dict(kernels.LAUNCHES)
+    got = torch.autograd.grad(kernels.mru_gate(*ins), ins, g)
+    torch.cuda.synchronize()
+    check(kernels.LAUNCHES['mru_gate_blend'] == before['mru_gate_blend'] + 1
+          and kernels.LAUNCHES['mru_gate_bwd'] == before['mru_gate_bwd'] + 1,
+          'the gate Function did not launch K3 and K4 once each')
+    ref = torch.autograd.grad(kernels.mru_gate_blend_plain(*ins), ins, g)
+    for name, a, b in zip(('drg', 'dht', 'dimg'), got, ref):
+        err, ok, _ = _close(a, b, K2_TOL['float32'])
+        print(f'Function (K3 forward, K4 backward) float32 {list(shape)} '
+              f'{name} vs autograd of the plain chain: max abs diff '
+              f'{err:.3g} (limit atol 1e-4 rtol 1e-4)')
+        check(ok, f'the gate Function {name} differs from autograd')
+    return max_err, per_step
+
+
 def _post(port, path, body):
     conn = http.client.HTTPConnection('127.0.0.1', port, timeout=600)
     try:
@@ -451,8 +716,9 @@ def _read_metrics(path: str):
 
 def train_phase(card: str, tmp: str):
     """The training CLI at full width on cuda: 2 epochs of 2 batches (4
-    steps, checkpoints 2 and 5), then 1 epoch resumed at counter 5.
-    Returns the K1 and K2 launch counts of the two runs."""
+    steps, checkpoints 2 and 5), then 1 epoch resumed at counter 5, both
+    float32 with the switches off; then a fresh run of 2 steps in bfloat16
+    with both classifier switches on. Returns each run's launch counts."""
     import math
 
     import numpy as np
@@ -469,57 +735,69 @@ def train_phase(card: str, tmp: str):
     write_dataset(root, 2 * config.batch_size, config.num_classes,
                   config.output_height, config.output_width)
     out = os.path.join(tmp, 'outputs')
-    args = ['--dataroot', root, '--dataset', 'ds', '--outputsroot', out,
-            '--name', 'smoke', '--save_checkpoint_frequency', '3']
-    ckpt_dir = os.path.join(out, 'smoke', 'checkpoints')
-    log = os.path.join(out, 'smoke', 'logs', 'metrics.jsonl')
     start, _ = bridge.random_jax_params(config, config.seed, critics=True)
-    launches = []
-    for epochs, steps, first in ((2, 4, 2), (1, 2, 6)):
+    runs = [  # (label, --name, flags, switches, steps, first counter)
+        ('float32 --epoch 2', 'smoke', ['--epoch', '2'], False, 4, 2),
+        ('float32 resumed --epoch 1', 'smoke', ['--epoch', '1'], False, 2,
+         6),
+        ('bfloat16 --epoch 1, switches on', 'smoke_bf16',
+         ['--epoch', '1', '--dtype', 'bfloat16'], True, 2, 2)]
+    launches = {}
+    for label, name, flags, switches, steps, first in runs:
+        args = ['--dataroot', root, '--dataset', 'ds', '--outputsroot', out,
+                '--name', name, '--save_checkpoint_frequency', '3'] + flags
+        ckpt_dir = os.path.join(out, name, 'checkpoints')
+        log = os.path.join(out, name, 'logs', 'metrics.jsonl')
         n_lines = len(_read_metrics(log)) if os.path.exists(log) else 0
-        if first > 2:   # the resumed run starts from checkpoint 5
-            start = ckpt.read(ckpt_dir, 5)[0]['params']
+        # a resumed run starts from checkpoint 5
+        run_start = ckpt.read(ckpt_dir, 5)[0]['params'] if first > 2 else start
         for k in kernels.LAUNCHES:
             kernels.LAUNCHES[k] = 0
         t0 = time.perf_counter()
-        state = train_cli.main(args + ['--epoch', str(epochs)])
+        with classifier_switches(switches):
+            state = train_cli.main(args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(kernels.LAUNCHES)
-        launches.append(counts)
+        launches[label] = counts
         lines = _read_metrics(log)[n_lines:]
         if first > 2:
             check(lines and lines[0] == {'resumed_at': 5},
                   f'no resume at counter 5: {lines[:1]}')
             lines = lines[1:]
+            check(state.step == 6, f'train state step {state.step} after '
+                  'the resume')
         check([m['step'] for m in lines] == list(range(first, first + steps)),
-              f'steps logged: {[m.get("step") for m in lines]}')
+              f'{label}: steps logged: {[m.get("step") for m in lines]}')
         for m in lines:
             vals = {k: v for k, v in m.items() if k not in ('step', 'epoch')}
             check(len(vals) == 11 and all(math.isfinite(v)
                                           for v in vals.values()),
-                  f'metrics at step {m["step"]}: {vals}')
-        check(counts['instance_norm_act'] == K1_PER_STEP * steps
-              and counts['instance_norm_act_bwd'] == K2_PER_STEP * steps,
-              f'launches {counts} for {steps} steps')
+                  f'{label}: metrics at step {m["step"]}: {vals}')
+        on = int(switches)
+        want = {'instance_norm_act': K1_PER_STEP * steps,
+                'instance_norm_act_bwd': K2_PER_STEP * steps,
+                'prelu_bwd': on * K5_PER_STEP * steps,
+                'mru_gate_blend': on * K3_PER_STEP * steps,
+                'mru_gate_bwd': on * K4_PER_STEP * steps}
+        check(counts == want, f'{label}: launches {counts} for {steps} '
+              f'steps, expected {want}')
         params, _ = bridge.export_jax_params(state.nets)
         moved = {net: max(float(np.abs(a - b).max()) for a, b in zip(
-            _leaves(params[net]), _leaves(start[net]))) for net in params}
-        check(all(v > 0 for v in moved.values()), f'a group did not move: '
-              f'{moved}')
-        print(f'train CLI --epoch {epochs}: {steps} steps of batch '
+            _leaves(params[net]), _leaves(run_start[net]))) for net in params}
+        check(all(v > 0 for v in moved.values()), f'{label}: a group did '
+              f'not move: {moved}')
+        print(f'train CLI {label}: {steps} steps of batch '
               f'{config.batch_size} in {wall:.3f} s with start-up (host '
-              f'clock); K1 {counts["instance_norm_act"]} and K2 '
-              f'{counts["instance_norm_act_bwd"]} launches = '
-              f'{K1_PER_STEP} and {K2_PER_STEP} per step; largest change '
-              f'per network in this run: '
-              + ', '.join(f'{k} {v:.3g}' for k, v in moved.items())
+              f'clock); launches {counts} = per step K1 {K1_PER_STEP}, K2 '
+              f'{K2_PER_STEP}, K5 {on * K5_PER_STEP}, K3 {on * K3_PER_STEP}, '
+              f'K4 {on * K4_PER_STEP}; largest change per network in this '
+              f'run: ' + ', '.join(f'{k} {v:.3g}' for k, v in moved.items())
               + f' [{card}]')
         print('  last metrics: ' + json.dumps(lines[-1]))
-        if first == 2:
+        if label == runs[0][0]:
             check(ckpt.steps(ckpt_dir) == [2, 5],
                   f'checkpoints {ckpt.steps(ckpt_dir)}, expected [2, 5]')
-    check(state.step == 6, f'train state step {state.step} after the resume')
     return launches
 
 
@@ -560,11 +838,15 @@ def card_vs_cpu_phase(card: str):
     penalty differentiates the critics' lrelu kinks and instance norms
     twice), so the limit on each difference is set from the CPU's own
     sensitivity, measured in the same run: the CPU step again with the
-    images and the latents moved by about one part in 1e6."""
+    images and the latents moved by about one part in 1e6. The card step
+    runs twice, with the classifier switches off and on (K5, K3 and K4,
+    which must launch 42, 12 and 12 times), each against the same CPU
+    step with the switches off."""
     import numpy as np
 
     from edgegan_torch import bridge
     from edgegan_torch.core.config import Config
+    from edgegan_torch.ops import kernels
 
     config = Config(batch_size=4).derive('train')
     params, aux = bridge.random_jax_params(config, 1, critics=True)
@@ -579,40 +861,60 @@ def card_vs_cpu_phase(card: str):
     def jitter(a):
         return (a * (1 + 1e-6 * rng.randn(*a.shape))).astype(np.float32)
     t0 = time.perf_counter()
-    card_m, card_p = _one_step(config, params, aux, 'cuda', images, z, draws)
-    cpu_m, cpu_p = _one_step(config, params, aux, 'cpu', images, z, draws)
-    jit_m, jit_p = _one_step(config, params, aux, 'cpu', jitter(images), z,
-                             dict(draws, z=jitter(draws['z'])))
-    print(f'card vs CPU: 3 steps in {time.perf_counter() - t0:.1f} s '
+    with classifier_switches(False):
+        card_m, card_p = _one_step(config, params, aux, 'cuda', images, z,
+                                   draws)
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    with classifier_switches(True):
+        on_m, on_p = _one_step(config, params, aux, 'cuda', images, z, draws)
+    counts = dict(kernels.LAUNCHES)
+    with classifier_switches(False):
+        cpu_m, cpu_p = _one_step(config, params, aux, 'cpu', images, z, draws)
+        jit_m, jit_p = _one_step(config, params, aux, 'cpu', jitter(images),
+                                 z, dict(draws, z=jitter(draws['z'])))
+    print(f'card vs CPU: 4 steps in {time.perf_counter() - t0:.1f} s '
           f'[{card}]')
+    check((counts['prelu_bwd'], counts['mru_gate_blend'],
+           counts['mru_gate_bwd']) == (K5_PER_STEP, K3_PER_STEP,
+                                       K4_PER_STEP),
+          f'the switched card step launched {counts}')
     ok = True
-    for k in sorted(cpu_m):
-        diff, own = abs(card_m[k] - cpu_m[k]), abs(jit_m[k] - cpu_m[k])
-        limit = 3 * own + 1e-4 * max(1.0, abs(cpu_m[k]))
-        ok &= diff <= limit
-        print(f'  {k}: card {card_m[k]:.6g} cpu {cpu_m[k]:.6g}, diff '
-              f'{diff:.3g}, CPU under 1e-6 input jitter {own:.3g}, limit '
-              f'{limit:.3g}')
-    for net in sorted(cpu_p):
-        start = np.concatenate([a.ravel() for a in _leaves(params[net])])
-        upd = {name: np.concatenate([a.ravel() for a in _leaves(p[net])])
-               - start for name, p in (('card', card_p), ('cpu', cpu_p),
-                                       ('jit', jit_p))}
-        norm = np.linalg.norm(upd['cpu'])
-        diff = np.linalg.norm(upd['card'] - upd['cpu'])
-        own = np.linalg.norm(upd['jit'] - upd['cpu'])
-        limit = 3 * own + 1e-3 * norm
-        ok &= diff <= limit
-        print(f'  {net} update: |cpu| {norm:.4g}, |card - cpu| {diff:.3g} '
-              f'(max abs {np.abs(upd["card"] - upd["cpu"]).max():.3g}), '
-              f'|cpu jittered - cpu| {own:.3g}, limit {limit:.3g}')
-    check(ok, 'the card step differs from the CPU step beyond the limits')
+    for label, got_m, got_p in (('switches off', card_m, card_p),
+                                ('switches on', on_m, on_p)):
+        print(f' card step with the classifier {label}:')
+        for k in sorted(cpu_m):
+            diff, own = abs(got_m[k] - cpu_m[k]), abs(jit_m[k] - cpu_m[k])
+            limit = 3 * own + 1e-4 * max(1.0, abs(cpu_m[k]))
+            ok &= diff <= limit
+            print(f'  {k}: card {got_m[k]:.6g} cpu {cpu_m[k]:.6g}, diff '
+                  f'{diff:.3g}, CPU under 1e-6 input jitter {own:.3g}, '
+                  f'limit {limit:.3g}')
+        for net in sorted(cpu_p):
+            start = np.concatenate([a.ravel() for a in _leaves(params[net])])
+            upd = {name: np.concatenate([a.ravel() for a in _leaves(p[net])])
+                   - start for name, p in (('card', got_p), ('cpu', cpu_p),
+                                           ('jit', jit_p))}
+            norm = np.linalg.norm(upd['cpu'])
+            diff = np.linalg.norm(upd['card'] - upd['cpu'])
+            own = np.linalg.norm(upd['jit'] - upd['cpu'])
+            limit = 3 * own + 1e-3 * norm
+            ok &= diff <= limit
+            print(f'  {net} update: |cpu| {norm:.4g}, |card - cpu| '
+                  f'{diff:.3g} (max abs '
+                  f'{np.abs(upd["card"] - upd["cpu"]).max():.3g}), '
+                  f'|cpu jittered - cpu| {own:.3g}, limit {limit:.3g}')
+    check(ok, 'a card step differs from the CPU step beyond the limits')
 
 
 def step_time_phase(card: str):
-    """Time per training step at the default batch 64 in float32 on a
-    staged batch; returns K1's and K2's device time per step from the
-    profile."""
+    """Time per training step at the default batch 64 on a staged batch,
+    in float32 and bfloat16, each with the classifier switches off and on
+    in turns (off, on, on, off, off, on: 5 steps a turn, 15 per setting),
+    then the optimizer-group split and the profile of each of the four
+    settings. Returns {(dtype, switches): (CUDA-event ms, host ms, peak
+    GiB)} and the profiles' device ms per step by kernel, keyed the
+    same way."""
     import numpy as np
     import torch
 
@@ -622,46 +924,112 @@ def step_time_phase(card: str):
     from edgegan_torch.train.state import create_train_state
     from edgegan_torch.train.step import make_draws, make_train_step
 
-    config = Config().derive('train')
-    b, h, w = config.batch_size, config.output_height, config.output_width
-    nets = bridge.load_jax_params(Networks(config, critics=True),
-                                  *bridge.random_jax_params(
-                                      config, 0, critics=True)).to('cuda')
-    state = create_train_state(nets)
-    step = make_train_step(nets, config)
     rng = np.random.RandomState(3)
-    images = torch.from_numpy(rng.uniform(-1, 1, (b, h, w, 3)).astype(
-        np.float32)).cuda()
-    z = torch.from_numpy(rng.randint(0, config.num_classes, (b, 1)).astype(
-        np.float32)).cuda()
-    gen = torch.Generator(device='cuda').manual_seed(0)
-    draws = make_draws(config, b, gen, 'cuda')
+    times, profiles = {}, {}
+    for dtype in ('float32', 'bfloat16'):
+        config = Config(dtype=dtype).derive('train')
+        b, h, w = config.batch_size, config.output_height, config.output_width
+        nets = bridge.load_jax_params(Networks(config, critics=True),
+                                      *bridge.random_jax_params(
+                                          config, 0, critics=True)).to('cuda')
+        state = create_train_state(nets)
+        step = make_train_step(nets, config)
+        # the batch as the CLI hands it over: bfloat16 images in bfloat16
+        images = torch.from_numpy(rng.uniform(-1, 1, (b, h, w, 3)).astype(
+            np.float32)).to('cuda', getattr(torch, dtype))
+        z = torch.from_numpy(rng.randint(0, config.num_classes, (b, 1))
+                             .astype(np.float32)).cuda()
+        gen = torch.Generator(device='cuda').manual_seed(0)
+        draws = make_draws(config, b, gen, 'cuda')
 
-    def one():
-        step(state, images, z, draws)
+        def one():
+            step(state, images, z, draws)
 
-    torch.cuda.reset_peak_memory_stats()
-    ms = cuda_ms(one, 10, warmup=2)
-    t0 = time.perf_counter()
-    for _ in range(5):
-        one()
+        turns = {False: [], True: []}
+        for switches in (False, True, True, False, False, True):
+            with classifier_switches(switches):
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_ms(one, 5, warmup=1)
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    one()
+                    torch.cuda.synchronize()
+                host_ms = (time.perf_counter() - t0) / 3 * 1e3
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                turns[switches].append((ms, host_ms, peak))
+        for switches, got in turns.items():
+            ms, host_ms, peak = (float(np.mean(v)) for v in zip(*got))
+            times[(dtype, switches)] = (ms, host_ms, max(v[2] for v in got))
+            print(f'time per training step at batch {b} {dtype}, classifier '
+                  f'switches {"on" if switches else "off"} (faithful, 7 '
+                  f'groups): {ms:.3f} ms (CUDA events, 3 turns of 5 back to '
+                  f'back: ' + ', '.join(f'{t[0]:.3f}' for t in got)
+                  + f'), {host_ms:.3f} ms one at a time (host clock, 9 '
+                  f'steps); peak device memory '
+                  f'{times[(dtype, switches)][2]:.2f} GiB [{card}]')
+        for switches in (False, True):
+            label = f'{dtype}, switches {"on" if switches else "off"}'
+            with classifier_switches(switches):
+                print(f'{label}:')
+                group_split(card, one)
+                by_name = profile_steps(
+                    card, f'training step batch {b} {label}', one, n=5,
+                    unit='step')
+            per_step = {}
+            for kname, parts in (
+                    ('instance_norm_act_fwd', ['instance_norm_act_fwd']),
+                    ('instance_norm_act_bwd', ['instance_norm_act_bwd']),
+                    ('prelu_bwd', ['prelu_bwd_kernel', 'sum_partials']),
+                    ('mru_gate_fwd', ['mru_gate_fwd']),
+                    ('mru_gate_bwd', ['mru_gate_bwd'])):
+                per_step[kname] = sum(v for k, v in by_name.items()
+                                      if any(p in k for p in parts))
+                print(f'  {kname}: {per_step[kname]:.4f} ms of device time '
+                      f'per step (profile, {label}) [{card}]')
+            profiles[(dtype, switches)] = per_step
+    return times, profiles
+
+
+def host_cost_phase(card: str):
+    """Host time to issue one call (no synchronisation) of each kernel's
+    wrapper, of its plain version and of one plain PyTorch op, at the
+    smallest classifier shapes in bfloat16, where the training step waits
+    on the host: the mean of 200 calls after 20."""
+    import torch
+
+    from edgegan_torch.ops import kernels
+    dev = torch.device('cuda')
+    x = torch.randn(64, 768, 4, 4, device=dev).bfloat16()
+    g = torch.randn_like(x)
+    lk = torch.tensor(0.2, device=dev)
+    rg, ht, img = (torch.randn(64, 512, 8, 8, device=dev).bfloat16()
+                   for _ in range(3))
+    y = torch.randn(64, 256, 8, 8, device=dev).bfloat16()
+    calls = {
+        'torch.add (one plain op)': lambda: torch.add(x, g),
+        'K5 prelu_bwd': lambda: kernels.prelu_bwd(x, g, lk),
+        'K5 plain': lambda: kernels.prelu_bwd_plain(x, g, lk),
+        'K3 mru_gate_blend': lambda: kernels.mru_gate_blend(rg, ht, img),
+        'K3 plain': lambda: kernels.mru_gate_blend_plain(rg, ht, img),
+        'K4 mru_gate_bwd': lambda: kernels.mru_gate_bwd(rg, img, ht),
+        'K4 plain': lambda: kernels.mru_gate_bwd_plain(rg, img, ht),
+        'K1 instance_norm_act': lambda: kernels.instance_norm_act(y, 'relu'),
+        'K2 instance_norm_act_bwd':
+            lambda: kernels.instance_norm_act_bwd(y, y, 'relu'),
+    }
+    out = {}
+    for name, fn in calls.items():
+        for _ in range(20):
+            fn()
         torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) / 5 * 1e3
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f'time per training step at batch {b} float32 (faithful, 7 '
-          f'groups): {ms:.3f} ms (CUDA events, 10 back to back), '
-          f'{host_ms:.3f} ms one at a time (host clock); peak device memory '
-          f'{peak:.2f} GiB [{card}]')
-    group_split(card, one)
-    by_name = profile_steps(card, f'training step batch {b} float32', one,
-                            n=5, unit='step')
-    per_step = {}
-    for kname in ('instance_norm_act_fwd', 'instance_norm_act_bwd'):
-        per_step[kname] = sum(v for k, v in by_name.items()
-                              if kname in k)
-        print(f'  {kname}: {per_step[kname]:.4f} ms of device time per '
-              f'step (profile) [{card}]')
-    return ms, per_step
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        out[name] = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        print(f'host time per call, {name}: {out[name]:.1f} us (host clock, '
+              f'issue only) [{card}]')
+    return out
 
 
 # the step's optimizer updates in order; each update ends one span of
@@ -757,8 +1125,8 @@ def profile_steps(card: str, label: str, step, n: int = 10,
 def _kernel_entry(name, source, replaces, sums, scale, launches,
                   max_err, work, **extra):
     """One kernel's record for the JSON line: `sums` holds the summed
-    per-shape times and bounds of one pass over the three shapes, and
-    `scale` the number of such passes in the work described."""
+    per-shape times and bounds of one pass over the shapes it was timed
+    at, and `scale` the number of such passes in the work described."""
     return {
         'name': name, 'route': 'cuda', 'source': source,
         'replaces': replaces, 'launches': sum(launches.values()),
@@ -770,6 +1138,11 @@ def _kernel_entry(name, source, replaces, sums, scale, launches,
         'bound_by': ('bytes' if sums['bytes_ms'] >= sums['ops_ms']
                      else 'operations'),
         'library_ms': None, 'work': work, **extra}
+
+
+def _step_times(sums):
+    return {'ms': sums['ms'], 'plain_ms': sums['plain_ms'],
+            'bound_ms': max(sums['bytes_ms'], sums['ops_ms'])}
 
 
 def main() -> int:
@@ -804,10 +1177,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase('K1', kernel_phase, card)
         phase('K2', k2_phase, card)
+        phase('K5', k5_phase, card)
+        phase('K3/K4', gate_phase, card)
         phase('serve', serving_phase, card)
         phase('train', train_phase, card, tmp)
         phase('card_vs_cpu', card_vs_cpu_phase, card)
         phase('step_time', step_time_phase, card)
+        phase('host_cost', host_cost_phase, card)
     if failed:
         print(f'chip_smoke: failed phases: {", ".join(failed)}',
               file=sys.stderr)
@@ -815,16 +1191,18 @@ def main() -> int:
 
     k1_err, k1_sums = results['K1']
     k2_err, k2_sums = results['K2']
+    k5_err, dleak_err, k5_steps = results['K5']
+    gate_err, gate_steps = results['K3/K4']
     train_runs = results['train']
-    step_ms, prof = results['step_time']
-    k1_launches = {'serve': results['serve'],
-                   'train --epoch 2': train_runs[0]['instance_norm_act'],
-                   'train resume --epoch 1':
-                       train_runs[1]['instance_norm_act']}
-    k2_launches = {'train --epoch 2': train_runs[0]['instance_norm_act_bwd'],
-                   'train resume --epoch 1':
-                       train_runs[1]['instance_norm_act_bwd']}
+    times, prof = results['step_time']
+
+    def by_run(key):
+        return {label: counts[key] for label, counts in train_runs.items()}
+
+    k1_launches = {'serve': results['serve'], **by_run('instance_norm_act')}
     k1 = k1_sums[(16, 'bfloat16')]
+    bf16_work = ('one training step: batch 64, bfloat16, both switches on, '
+                 '3 classifier passes (group 4 and both generator updates)')
     print(f'card: {card}')
     print(json.dumps({'kernels': [
         # one served batch at max_batch 16 in bfloat16 (the serving
@@ -837,22 +1215,69 @@ def main() -> int:
             yardstick={'call': 'F.relu(F.instance_norm(x)), eps inside the '
                                'sqrt: not the same function',
                        'ms': 2 * k1['library_ms']},
-            train_step_ms=K1_PER_STEP / 3 * k1_sums[(64, 'float32')]['ms'],
-            train_step_device_ms=prof.get('instance_norm_act_fwd')),
+            train_step_ms={d: K1_PER_STEP / 3 * k1_sums[(64, d)]['ms']
+                           for d in ('float32', 'bfloat16')},
+            train_step_device_ms={
+                f'{d}, switches {"on" if on else "off"}': p[
+                    'instance_norm_act_fwd'] for (d, on), p in prof.items()}),
         # one training step at batch 64 in float32: the three shapes in
         # each of 2 generator updates x (G1, G2)
         _kernel_entry(
             'instance_norm_act_bwd', 'edgegan_torch/csrc/instance_norm_act.cu',
             'edgegan_tpu/ops/pallas_kernels.py:167', k2_sums[(64, 'float32')],
-            K2_PER_STEP // 3, k2_launches, k2_err,
+            K2_PER_STEP // 3, by_run('instance_norm_act_bwd'), k2_err,
             'one training step: batch 64, float32, relu, 4 calls at each of '
             '[64,256,8,8], [64,128,16,16], [64,64,32,32] (2 generator '
             'updates x G1, G2)',
             yardstick={'call': 'backward of F.relu(F.instance_norm(x)), eps '
                                'inside the sqrt: not the same function',
                        'ms': 4 * k2_sums[(64, 'float32')]['yardstick_ms']},
-            train_step_device_ms=prof.get('instance_norm_act_bwd')),
-    ], 'train_step_ms': step_ms}))
+            train_step_ms={d: K2_PER_STEP / 3 * k2_sums[(64, d)]['ms']
+                           for d in ('float32', 'bfloat16')},
+            train_step_device_ms={
+                f'{d}, switches {"on" if on else "off"}': p[
+                    'instance_norm_act_bwd'] for (d, on), p in prof.items()}),
+        _kernel_entry(
+            'prelu_bwd', 'edgegan_torch/csrc/prelu_bwd.cu',
+            'edgegan_tpu/ops/pallas_kernels.py:247', k5_steps['bfloat16'], 1,
+            by_run('prelu_bwd'), k5_err,
+            f'{bf16_work}: the 14 PReLU shapes, {K5_PER_STEP} calls',
+            yardstick={'call': 'backward of F.prelu(x, w): no tie split, '
+                               'and max(leak*x, x) only for 0 <= leak <= 1: '
+                               'not the same function',
+                       'ms': k5_steps['bfloat16']['yardstick_ms']},
+            float32=_step_times(k5_steps['float32']),
+            dleak_max_err_of_sum_abs_terms=dleak_err,
+            train_step_device_ms={
+                d: prof[(d, True)]['prelu_bwd']
+                for d in ('float32', 'bfloat16')}),
+        _kernel_entry(
+            'mru_gate_blend', 'edgegan_torch/csrc/mru_gate.cu',
+            'edgegan_tpu/ops/pallas_kernels.py:368',
+            gate_steps['K3']['bfloat16'], 1, by_run('mru_gate_blend'),
+            gate_err['K3'], f'{bf16_work}: the 4 gate shapes, '
+            f'{K3_PER_STEP} calls',
+            yardstick={'call': None, 'ms': None,
+                       'why': 'no single PyTorch call computes it'},
+            float32=_step_times(gate_steps['K3']['float32']),
+            train_step_device_ms={
+                d: prof[(d, True)]['mru_gate_fwd']
+                for d in ('float32', 'bfloat16')}),
+        _kernel_entry(
+            'mru_gate_bwd', 'edgegan_torch/csrc/mru_gate.cu',
+            'edgegan_tpu/ops/pallas_kernels.py:388',
+            gate_steps['K4']['bfloat16'], 1, by_run('mru_gate_bwd'),
+            gate_err['K4'], f'{bf16_work}: the 4 gate shapes, '
+            f'{K4_PER_STEP} calls',
+            yardstick={'call': None, 'ms': None,
+                       'why': 'no single PyTorch call computes it'},
+            float32=_step_times(gate_steps['K4']['float32']),
+            train_step_device_ms={
+                d: prof[(d, True)]['mru_gate_bwd']
+                for d in ('float32', 'bfloat16')}),
+    ], 'train_step_ms': {f'{d}, switches {"on" if on else "off"}': t[0]
+                         for (d, on), t in times.items()},
+        'host_us_per_call': results['host_cost']}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

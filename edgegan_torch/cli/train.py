@@ -3,7 +3,10 @@ package's cli/train.py:29-353).
 
 Flag-compatible with the JAX trainer (every `Config` field is a flag),
 plus `--device` (default `cuda`: the card `cuda:<gpu>`; `cpu` runs the
-plain versions of the kernels). One process, one device.
+plain versions of the kernels). One process, one device. `--dtype
+bfloat16` trains in mixed precision (see `train/step.py`); the classifier's
+kernels K5 and K3/K4 run when EDGEGAN_PALLAS_PRELU=1 and
+EDGEGAN_PALLAS_GATE=1 are set (`ops/kernels.py`), off by default.
 
 - Resumes from the newest finite checkpoint and counts on from its
   counter; the epoch loop restarts at 0, as the JAX trainer's does.
@@ -40,7 +43,7 @@ from ..data.dataset import Dataset
 from ..data.loader import PrefetchLoader
 from ..train.networks import Networks
 from ..train.state import create_train_state
-from ..train.step import make_draws, make_train_step
+from ..train.step import COMPUTE_DTYPES, make_draws, make_train_step
 from ..bridge import random_jax_params, load_jax_params
 
 
@@ -105,8 +108,10 @@ def main(argv=None):
 
     previous = {sig: signal.signal(sig, _request_stop)
                 for sig in (signal.SIGTERM, signal.SIGINT)}
-    loader = PrefetchLoader(dataset, prefetch=config.prefetch,
-                            pin=device.type == 'cuda')
+    # bfloat16 training casts the images on the host before the copy
+    loader = PrefetchLoader(
+        dataset, prefetch=config.prefetch, pin=device.type == 'cuda',
+        image_dtype=COMPUTE_DTYPES[config.dtype])
     profiler = None
     nan_streak = False
     halted = []

@@ -36,40 +36,16 @@
 // cudaGetLastError() after the launch. Launches on the caller's stream,
 // allocates nothing and does not synchronise.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
+using edgegan::block_sum;
+using edgegan::store;
+using edgegan::to_f32;
+
 constexpr int kThreads = 256;
 constexpr float kEps = 1e-5f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// Sum over the block; every thread gets the total. `scratch` holds one
-// float per warp and is reused, so the block synchronises before return.
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  }
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  const int n_warps = blockDim.x >> 5;
-  float total = 0.f;
-  for (int i = 0; i < n_warps; ++i) total += scratch[i];
-  __syncthreads();
-  return total;
-}
 
 template <typename T, int kAct>
 __global__ void __launch_bounds__(kThreads)

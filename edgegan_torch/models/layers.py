@@ -188,15 +188,19 @@ class Residual(nn.Module):
 
 class PReLU(nn.Module):
     """prelu (reference activation.py:23-27): a learnable scalar leak,
-    float32, initialised to 0.2. The plain backward splits the tie at
-    x == 0 evenly, as the JAX package's default path does
-    (layers.py:273-277); its fused backward (K5) is not ported."""
+    float32, initialised to 0.2. With `kernels.prelu_enabled()` the
+    backward is the fused kernel K5, which takes the float32 leak, as the
+    JAX package's switched path does (layers.py:273-277); otherwise the
+    plain autograd of `max(leak*x, x)`. Both split the tie at x == 0
+    evenly."""
 
     def __init__(self):
         super().__init__()
         self.param = _param(fill=0.2)
 
     def forward(self, x):
+        if kernels.prelu_enabled():
+            return kernels.prelu(x, self.param)
         return activations.prelu(x, self.param.to(x.dtype))
 
 
@@ -245,11 +249,14 @@ class MRUBlock(nn.Module):
     to a 1x1-projected residual (every unit of the classifier changes the
     depth), then a 2x2 mean pool.
 
-    The gate's min and max are `amin`/`amax`, whose backward splits tied
-    extrema evenly, as `jnp.min`/`jnp.max` do (`max(dim)` does not). A
-    spatially constant gate is guarded to a zero gate unless
-    EDGEGAN_NAN_GUARDS=0. The fused gate (K3/K4) is not ported: this is
-    the JAX package's default path (layers.py:386-406).
+    With `kernels.gate_enabled()` the min-max gate and blend are the
+    fused kernels K3 (forward) and K4 (backward), as in the JAX package's
+    switched path (layers.py:386-392). Otherwise, its default path
+    (l.393-406): `amin`/`amax`, whose backward splits tied extrema evenly
+    as `jnp.min`/`jnp.max` do (`max(dim)` does not), in the input dtype.
+    Both guard a spatially constant gate to a zero gate; the plain path
+    drops the guard under EDGEGAN_NAN_GUARDS=0, which also turns the
+    kernels off.
     """
 
     def __init__(self, in_ch: int, hidden_depth: int, filter_depth: int):
@@ -268,12 +275,15 @@ class MRUBlock(nn.Module):
         full_inp = torch.cat([self.norm_activation_in_prelu(ht), inp], dim=1)
         rg = self.update_gate(full_inp)
         img_new = self.img_conv(inp)
-        rg_min = rg.amin(dim=(2, 3), keepdim=True)
-        rg_range = rg.amax(dim=(2, 3), keepdim=True) - rg_min
-        if norms.nan_guards_enabled():
-            rg_range = torch.where(rg_range > 0, rg_range,
-                                   torch.ones_like(rg_range))
-        ht_plus = ht + (rg - rg_min) / rg_range * img_new
+        if kernels.gate_enabled():
+            ht_plus = kernels.mru_gate(rg, ht, img_new)
+        else:
+            rg_min = rg.amin(dim=(2, 3), keepdim=True)
+            rg_range = rg.amax(dim=(2, 3), keepdim=True) - rg_min
+            if norms.nan_guards_enabled():
+                rg_range = torch.where(rg_range > 0, rg_range,
+                                       torch.ones_like(rg_range))
+            ht_plus = ht + (rg - rg_min) / rg_range * img_new
         h_new = self.h_conv1(self.norm_activation_merge_1_prelu(ht_plus))
         h_new = self.h_conv2(h_new)
         return mean_pool(self.shortcut(ht) + h_new)

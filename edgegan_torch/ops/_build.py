@@ -1,11 +1,12 @@
 """Builds the port's CUDA kernels at first use and loads them with ctypes.
 
-`nvcc` compiles every `csrc/*.cu` into one shared library with a plain C
-interface, for sm_90a (Hopper), into `edgegan_torch/build/` (listed in
-`.gitignore`). The library's name carries a hash of the sources, so an
-edited kernel is rebuilt and a stale one is never loaded. Nothing here
-runs at import time: the CPU tests import every module, and they have
-no `nvcc`.
+`nvcc` compiles every `csrc/*.cu` for sm_90a (Hopper), one process per
+source, all started together, and links the objects into one shared
+library with a plain C interface in `edgegan_torch/build/` (listed in
+`.gitignore`). The library's name carries a hash of the sources and the
+headers they share (`csrc/*.cuh`), so an edited kernel is rebuilt and a
+stale one is never loaded. Nothing here runs at import time: the CPU
+tests import every module, and they have no `nvcc`.
 """
 from __future__ import annotations
 
@@ -20,9 +21,10 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = sorted(glob.glob(os.path.join(_PKG, 'csrc', '*.cu')))
+HEADERS = sorted(glob.glob(os.path.join(_PKG, 'csrc', '*.cuh')))
 BUILD_DIR = os.path.join(_PKG, 'build')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC']
+              '-O3', '-Xcompiler', '-fPIC']
 
 _lock = threading.Lock()
 _lib = None
@@ -41,7 +43,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         with open(src, 'rb') as f:
             h.update(f.read())
     return h.hexdigest()[:16]
@@ -54,14 +56,33 @@ def build() -> str:
     path = os.path.join(BUILD_DIR, f'libedgegan_kernels_{_digest()}.so')
     if os.path.exists(path):
         return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f'{path}.{os.getpid()}.tmp'
+    obj_dir = f'{tmp}.objs'
+    os.makedirs(obj_dir, exist_ok=True)
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, *SOURCES],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                           f'{proc.stdout}{proc.stderr}')
+    nvcc = _nvcc()
+    try:
+        objs = [os.path.join(obj_dir, os.path.basename(src) + '.o')
+                for src in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, '-c', src, '-o', obj],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        failed = []
+        for src, proc in zip(SOURCES, procs):
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f'{os.path.basename(src)} '
+                              f'({proc.returncode}):\n{out}')
+        if failed:
+            raise RuntimeError('nvcc failed: ' + '\n'.join(failed))
+        proc = subprocess.run([nvcc, '-shared', '-o', tmp, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc link failed ({proc.returncode}):\n'
+                               f'{proc.stdout}{proc.stderr}')
+    finally:
+        shutil.rmtree(obj_dir, ignore_errors=True)
     os.replace(tmp, path)  # atomic: another process never loads half
     build_seconds = time.perf_counter() - t0
     return path
@@ -80,7 +101,18 @@ def library() -> ctypes.CDLL:
             # (x, g, dx, planes, hw, dtype, act, stream)
             bwd = lib.edgegan_instance_norm_act_bwd
             bwd.argtypes = [ptr, ptr, ptr, i64, i64, i32, i32, ptr]
-            for fn in (fwd, bwd):
+            # (x, g, leak, dx, dleak, partials, n, partials_len, dtype,
+            #  stream)
+            prelu = lib.edgegan_prelu_bwd
+            prelu.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32,
+                              ptr]
+            # (rg, ht, img, out, planes, hw, dtype, stream)
+            gate = lib.edgegan_mru_gate_fwd
+            gate.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, ptr]
+            # (rg, img, g, drg, dimg, planes, hw, dtype, stream)
+            gate_bwd = lib.edgegan_mru_gate_bwd
+            gate_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i32, ptr]
+            for fn in (fwd, bwd, prelu, gate, gate_bwd):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib

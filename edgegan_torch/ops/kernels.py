@@ -9,26 +9,44 @@ K1, `instance_norm_act`: fused instance norm + activation, forward.
 K2, `instance_norm_act_bwd`: K1's first-order VJP from x alone.
   - Replaces `_bwd_kernel` (l.117-135), launched by `_in_bwd` (l.167-172).
   - Bound: bytes, 3*B*C*H*W*itemsize (reads x and g, writes dx).
+K5, `prelu_bwd`: the classifier's PReLU backward, dx and the scalar dleak
+  in one pass (csrc/prelu_bwd.cu).
+  - Replaces `_prelu_bwd_kernel` (l.196-209), launched by `_prelu_bwd`
+    (l.247-274).
+  - Bound: bytes, 3*n*itemsize (reads x and g, writes dx).
+K3, `mru_gate_blend`, and K4, `mru_gate_bwd`: the MRU unit's min-max gate
+  and blend, forward and backward (csrc/mru_gate.cu).
+  - Replace `_gate_fwd_kernel` (l.308-314, `mru_gate_blend` l.367-381) and
+    `_gate_bwd_kernel` (l.317-343, `_gate_bwd` l.388-403).
+  - Bounds: bytes, 4*n*itemsize (K3) and 5*n*itemsize (K4).
 
-Both live in edgegan_torch/csrc/instance_norm_act.cu, one thread block
-per contiguous NCHW (batch, channel) plane, with float32 statistics. They
-run in the generators' three DeconvBlocks: K1 6 times per served batch and
-21 times per training step, K2 12 times per training step.
+K1 and K2 (csrc/instance_norm_act.cu) run one thread block per contiguous
+NCHW (batch, channel) plane, with float32 statistics, in the generators'
+three DeconvBlocks: K1 6 times per served batch and 21 times per training
+step, K2 12 times per training step. K3 and K4 also take one block per
+plane. K5, K3 and K4 run in the classifier, and only when their switches
+are on (`prelu_enabled`, `gate_enabled`): 42, 12 and 12 times per training
+step (three classifier passes, each through 14 PReLUs and 4 MRU gates).
 
-`instance_norm_act` is one `torch.autograd.Function`: its forward runs K1
-and saves only x, as the JAX package's `_in_fwd` (l.163-164) does; its
-backward runs K2 and is first-order only, like the JAX custom VJP. The
-critics, which WGAN-GP differentiates twice, never call it.
+Each kernel pair is one `torch.autograd.Function` with a first-order
+backward, as the JAX package's custom VJPs are: `instance_norm_act` saves
+only x (`_in_fwd`, l.163-164), `prelu` saves x and the leak, and
+`mru_gate` saves only (rg, img) (`_gate_fwd`, l.384-385). The critics,
+which WGAN-GP differentiates twice, never call them.
 
 A wrapper takes the plain version only for a tensor on the CPU. A CUDA
 tensor launches the kernel or raises; nothing falls back.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 from torch.autograd.function import once_differentiable
+
+from . import activations
+from .norms import nan_guards_enabled
 
 EPS = 1e-5
 _ACTS = {None: 0, 'relu': 1, 'lrelu': 2}
@@ -36,7 +54,39 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches per kernel, counted where the kernel is launched and nowhere
 # else. Callers reset an entry to 0 to count one run.
-LAUNCHES = {'instance_norm_act': 0, 'instance_norm_act_bwd': 0}
+LAUNCHES = {'instance_norm_act': 0, 'instance_norm_act_bwd': 0,
+            'prelu_bwd': 0, 'mru_gate_blend': 0, 'mru_gate_bwd': 0}
+# K5's scratch: one float32 partial of dleak per block, and so the cap on
+# its grid (8 blocks on each of the H100's 132 SMs)
+PRELU_PARTIALS = 1056
+
+
+def _switch(name: str) -> bool:
+    env = os.environ.get(name)
+    return env is not None and env not in ('0', 'false', '')
+
+
+def prelu_enabled() -> bool:
+    """The PReLU backward goes to K5 when EDGEGAN_PALLAS_PRELU is set (to
+    anything but 0, false or empty), as `pallas_kernels.prelu_enabled`
+    (l.67-73) reads it; off by default, and off under EDGEGAN_NAN_GUARDS=0
+    because the kernels implement the guarded numerics (l.40-50). Read at
+    call time.
+
+    The TPU kernel also asks `prelu_eligible` (l.221-229: whole 128-lane
+    rows, a VMEM limit). That rule does not carry over: K5 takes every
+    contiguous NCHW float32 or bfloat16 tensor, the 8-channel stem's
+    included."""
+    return nan_guards_enabled() and _switch('EDGEGAN_PALLAS_PRELU')
+
+
+def gate_enabled() -> bool:
+    """The MRU gate goes to K3/K4 when EDGEGAN_PALLAS_GATE is set; off by
+    default and under EDGEGAN_NAN_GUARDS=0, like `prelu_enabled`. The TPU
+    rule `gate_eligible` (l.352-364: channels a multiple of 128, a VMEM
+    limit) does not carry over: K3/K4 take every contiguous NCHW float32
+    or bfloat16 gate, MRU unit 1's 8-channel one included."""
+    return nan_guards_enabled() and _switch('EDGEGAN_PALLAS_GATE')
 
 
 def _check_act(activation: Optional[str]) -> int:
@@ -105,6 +155,24 @@ def _check_cuda(x, name: str):
         raise ValueError(f'{name}: unsupported dtype {x.dtype}')
 
 
+def _check_like(name: str, **tensors):
+    """Each tensor a contiguous NCHW CUDA tensor of a kernel's dtype, and
+    all of the first one's shape, dtype and device."""
+    (first, ref), *rest = tensors.items()
+    _check_cuda(ref, name)
+    for key, t in rest:
+        _check_cuda(t, name)
+        if t.shape != ref.shape or t.dtype != ref.dtype or \
+                t.device != ref.device:
+            raise ValueError(f'{name}: {key} {tuple(t.shape)} {t.dtype} '
+                             f'{t.device} does not match {first} '
+                             f'{tuple(ref.shape)} {ref.dtype} {ref.device}')
+
+
+def _stream(x) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
 def _raise_on(err: int, name: str):
     if err != 0:
         raise RuntimeError(f'{name} launch failed: CUDA error {err}')
@@ -123,10 +191,9 @@ def _forward(x, activation: Optional[str]):
     from ._build import library
     lib = library()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.edgegan_instance_norm_act_fwd(
             x.data_ptr(), y.data_ptr(), b * c, h * w, _DTYPES[x.dtype], act,
-            stream)
+            _stream(x))
     _raise_on(err, 'instance_norm_act')
     LAUNCHES['instance_norm_act'] += 1
     return y
@@ -141,12 +208,7 @@ def instance_norm_act_bwd(x, g, activation: Optional[str] = None):
     act = _check_act(activation)
     if x.device.type == 'cpu' and g.device.type == 'cpu':
         return instance_norm_act_bwd_plain(x, g, activation)
-    _check_cuda(x, 'instance_norm_act_bwd')
-    _check_cuda(g, 'instance_norm_act_bwd')
-    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
-        raise ValueError(f'instance_norm_act_bwd: g {tuple(g.shape)} '
-                         f'{g.dtype} {g.device} does not match x '
-                         f'{tuple(x.shape)} {x.dtype} {x.device}')
+    _check_like('instance_norm_act_bwd', x=x, g=g)
     b, c, h, w = x.shape
     dx = torch.empty_like(x)
     if x.numel() == 0:
@@ -154,10 +216,9 @@ def instance_norm_act_bwd(x, g, activation: Optional[str] = None):
     from ._build import library
     lib = library()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.edgegan_instance_norm_act_bwd(
             x.data_ptr(), g.data_ptr(), dx.data_ptr(), b * c, h * w,
-            _DTYPES[x.dtype], act, stream)
+            _DTYPES[x.dtype], act, _stream(x))
     _raise_on(err, 'instance_norm_act_bwd')
     LAUNCHES['instance_norm_act_bwd'] += 1
     return dx
@@ -189,3 +250,201 @@ def instance_norm_act(x, activation: Optional[str] = None):
     if x.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'instance_norm_act: unsupported device {x.device}')
     return _InstanceNormAct.apply(x, activation)
+
+
+# ---------------------------------------------------------------------------
+# K5: PReLU backward (the classifier's 14 PReLUs)
+# ---------------------------------------------------------------------------
+
+
+def prelu_bwd_plain(x, g, leak):
+    """K5's function in plain torch: (dx, dleak) of `max(leak*x, x)` for
+    the cotangent g, in float32 with the float32 leak (float64 stays
+    float64): s_u = 1 where leak*x > x, 0.5 at a tie, else 0;
+    dx = g*(s_u*leak + 1 - s_u) in x's dtype; dleak = sum(g*s_u*x), a 0-d
+    tensor in leak's dtype. In bfloat16, s_u is decided on
+    f32(leak)*f32(x), as the TPU kernel does (pallas_kernels.py:197-202),
+    not on the forward's bf16(leak)*x."""
+    x32, g32 = _wide(x), _wide(g)
+    lk = leak.to(x32.dtype)
+    u = lk * x32
+    s_u = torch.where(u > x32, 1.0, torch.where(u == x32, 0.5, 0.0)).to(
+        x32.dtype)
+    dx = (g32 * (s_u * lk + (1.0 - s_u))).to(x.dtype)
+    dleak = (g32 * s_u * x32).sum()
+    return dx, dleak.to(leak.dtype).reshape(leak.shape)
+
+
+def prelu_bwd(x, g, leak):
+    """K5: (dx, dleak) of `prelu(x, leak)` for the cotangent g.
+
+    CPU tensors take `prelu_bwd_plain`. On the card x and g must be
+    contiguous 4-D float32 or bfloat16 of one shape, dtype and device, and
+    leak a one-element float32 tensor there; anything else raises. dleak
+    is summed in a fixed order: the same on every run."""
+    if x.device.type == 'cpu' and g.device.type == 'cpu':
+        return prelu_bwd_plain(x, g, leak)
+    _check_like('prelu_bwd', x=x, g=g)
+    if leak.numel() != 1 or leak.dtype != torch.float32 or \
+            leak.device != x.device:
+        raise ValueError(f'prelu_bwd: leak must be one float32 element on '
+                         f'{x.device}, got {tuple(leak.shape)} {leak.dtype} '
+                         f'{leak.device}')
+    dx, dleak = torch.empty_like(x), torch.empty_like(leak)
+    if x.numel() == 0:
+        return dx, dleak.zero_()
+    partials = torch.empty(PRELU_PARTIALS, dtype=torch.float32,
+                           device=x.device)
+    from ._build import library
+    lib = library()
+    with torch.cuda.device(x.device):
+        err = lib.edgegan_prelu_bwd(
+            x.data_ptr(), g.data_ptr(), leak.data_ptr(), dx.data_ptr(),
+            dleak.data_ptr(), partials.data_ptr(), x.numel(),
+            PRELU_PARTIALS, _DTYPES[x.dtype], _stream(x))
+    _raise_on(err, 'prelu_bwd')
+    LAUNCHES['prelu_bwd'] += 1
+    return dx, dleak
+
+
+class _PReLU(torch.autograd.Function):
+    """Plain forward `max(leak.to(x.dtype)*x, x)` (pallas_kernels.py:240),
+    K5 backward; saves x and the leak (`_prelu_fwd`, l.243-244)."""
+
+    @staticmethod
+    def forward(ctx, x, leak):
+        ctx.save_for_backward(x, leak)
+        return activations.prelu(x, leak.to(x.dtype))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, leak = ctx.saved_tensors
+        return prelu_bwd(x, g.contiguous(), leak)
+
+
+def prelu(x, leak):
+    """PReLU with the float32 scalar `leak`, forward plain, backward K5
+    (first-order only). `x` is made contiguous first."""
+    return _PReLU.apply(x.contiguous(), leak)
+
+
+# ---------------------------------------------------------------------------
+# K3 and K4: the MRU unit's min-max gate and blend
+# ---------------------------------------------------------------------------
+
+
+def _gate_stats(rg32):
+    """Per plane: min, max, r = max - min, r > 0, and den (r, or 1 where
+    the plane is flat)."""
+    mn = rg32.amin(dim=(2, 3), keepdim=True)
+    mx = rg32.amax(dim=(2, 3), keepdim=True)
+    r = mx - mn
+    pos = r > 0
+    return mn, mx, r, pos, torch.where(pos, r, torch.ones_like(r))
+
+
+def mru_gate_blend_plain(rg, ht, img):
+    """K3's function in plain torch: `ht + (rg - min)/den * img` per
+    (b, c) plane of NCHW tensors, den = max - min, or 1 where max == min;
+    float32 math, output in rg's dtype."""
+    rg32 = _wide(rg)
+    mn, _, _, _, den = _gate_stats(rg32)
+    return (_wide(ht) + (rg32 - mn) / den * _wide(img)).to(rg.dtype)
+
+
+def mru_gate_bwd_plain(rg, img, g):
+    """K4's function in plain torch: (drg, dimg) of K3 for the cotangent g
+    (dht is g itself). dimg = g*rgn; drg = drgn/den plus, on the elements
+    tied at the minimum and the maximum, an even share of
+    dmn = sum(drgn*(rg - max))/r^2 and dmx = -sum(drgn*rgn)/den, with a
+    flat plane sending -sum(drgn) to its minimum
+    (pallas_kernels.py:317-343). float32 math, outputs in the inputs'
+    dtypes."""
+    rg32, img32, g32 = _wide(rg), _wide(img), _wide(g)
+    mn, mx, r, pos, den = _gate_stats(rg32)
+    rgn = (rg32 - mn) / den
+    drgn = g32 * img32
+    dims = (2, 3)
+    r2 = torch.where(pos, r * r, torch.ones_like(r))
+    d_min = torch.where(pos, (drgn * (rg32 - mx)).sum(dims, keepdim=True)
+                        / r2, -drgn.sum(dims, keepdim=True))
+    d_max = torch.where(pos, -(drgn * rgn).sum(dims, keepdim=True) / den,
+                        torch.zeros_like(r))
+    is_min, is_max = (rg32 == mn).to(rg32.dtype), (rg32 == mx).to(rg32.dtype)
+    n_min = is_min.sum(dims, keepdim=True)
+    n_max = is_max.sum(dims, keepdim=True)
+    drg = drgn / den + is_min * (d_min / n_min) + is_max * (d_max / n_max)
+    return drg.to(rg.dtype), (g32 * rgn).to(img.dtype)
+
+
+def mru_gate_blend(rg, ht, img):
+    """K3: `ht + minmax_normalize(rg) * img` per plane.
+
+    CPU tensors take `mru_gate_blend_plain`. On the card rg, ht and img
+    must be contiguous 4-D float32 or bfloat16 of one shape, dtype and
+    device; anything else raises."""
+    if all(t.device.type == 'cpu' for t in (rg, ht, img)):
+        return mru_gate_blend_plain(rg, ht, img)
+    _check_like('mru_gate_blend', rg=rg, ht=ht, img=img)
+    b, c, h, w = rg.shape
+    out = torch.empty_like(rg)
+    if rg.numel() == 0:
+        return out
+    from ._build import library
+    lib = library()
+    with torch.cuda.device(rg.device):
+        err = lib.edgegan_mru_gate_fwd(
+            rg.data_ptr(), ht.data_ptr(), img.data_ptr(), out.data_ptr(),
+            b * c, h * w, _DTYPES[rg.dtype], _stream(rg))
+    _raise_on(err, 'mru_gate_blend')
+    LAUNCHES['mru_gate_blend'] += 1
+    return out
+
+
+def mru_gate_bwd(rg, img, g):
+    """K4: (drg, dimg) of `mru_gate_blend` for the cotangent g.
+
+    CPU tensors take `mru_gate_bwd_plain`. On the card rg, img and g must
+    be contiguous 4-D float32 or bfloat16 of one shape, dtype and device;
+    anything else raises."""
+    if all(t.device.type == 'cpu' for t in (rg, img, g)):
+        return mru_gate_bwd_plain(rg, img, g)
+    _check_like('mru_gate_bwd', rg=rg, img=img, g=g)
+    b, c, h, w = rg.shape
+    drg, dimg = torch.empty_like(rg), torch.empty_like(img)
+    if rg.numel() == 0:
+        return drg, dimg
+    from ._build import library
+    lib = library()
+    with torch.cuda.device(rg.device):
+        err = lib.edgegan_mru_gate_bwd(
+            rg.data_ptr(), img.data_ptr(), g.data_ptr(), drg.data_ptr(),
+            dimg.data_ptr(), b * c, h * w, _DTYPES[rg.dtype], _stream(rg))
+    _raise_on(err, 'mru_gate_bwd')
+    LAUNCHES['mru_gate_bwd'] += 1
+    return drg, dimg
+
+
+class _MRUGate(torch.autograd.Function):
+    """K3 forward, K4 backward; saves only (rg, img) and returns dht = g
+    without a kernel (pallas_kernels.py:384-403)."""
+
+    @staticmethod
+    def forward(ctx, rg, ht, img):
+        ctx.save_for_backward(rg, img)
+        return mru_gate_blend(rg, ht, img)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        rg, img = ctx.saved_tensors
+        g = g.contiguous()
+        drg, dimg = mru_gate_bwd(rg, img, g)
+        return drg, g, dimg
+
+
+def mru_gate(rg, ht, img):
+    """The MRU gate and blend of NCHW `rg`, `ht`, `img` (K3, backward K4;
+    first-order only). The inputs are made contiguous first."""
+    return _MRUGate.apply(rg.contiguous(), ht.contiguous(), img.contiguous())

@@ -22,8 +22,15 @@ per sample for each critic's penalty, the encoder's scalar eps, and with
 `host_z=False` the latent z. The CLI draws them from a `torch.Generator`
 on the device; the tests hand in the JAX step's own draws.
 
+`dtype='bfloat16'` is mixed precision as in the JAX step (step.py:42-48,
+143-146): the images and the generators' input are cast to bfloat16 after
+the class column is read, and every layer casts its float32 weight to its
+input's dtype, so the networks run in bfloat16, while the master weights,
+the RMSProp slots, the losses (`.float()` at the loss boundary) and the
+metrics stay float32, and so do the labels and the encoder's L1 target.
+
 Waiting, and raising NotImplementedError: `update_mode='fast'`,
-`reference_metrics`, `update_sn` and `dtype='bfloat16'`.
+`reference_metrics` and `update_sn`.
 """
 from __future__ import annotations
 
@@ -38,6 +45,8 @@ from ..infer import exact_f32
 from ..ops.resize import resize
 from .networks import Networks
 from .state import GROUPS, RMSProp, TrainState, group_params
+
+COMPUTE_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
 # critic -> (optimizer group, metric of its loss)
 CRITICS = {'D': ('d', 'joint_dis_dloss'),
@@ -58,9 +67,17 @@ class Draws:
 
 def make_draws(config: Config, batch: int, generator: torch.Generator,
                device) -> Draws:
-    """Draw one step's `Draws` from `generator` (on `device`)."""
-    alpha = {name: torch.rand(batch, generator=generator, device=device)
-             for name in CRITICS}
+    """Draw one step's `Draws` from `generator` (on `device`). In bfloat16
+    the blend weights are multiples of 2^-7 in [0, 1), the values
+    `jax.random.uniform` draws in bfloat16 (losses.py:102), so that no
+    float32 draw rounds up to 1."""
+    if config.dtype == 'bfloat16':
+        alpha = {name: torch.randint(0, 2 ** 7, (batch,), generator=generator,
+                                     device=device) / 2.0 ** 7
+                 for name in CRITICS}
+    else:
+        alpha = {name: torch.rand(batch, generator=generator, device=device)
+                 for name in CRITICS}
     eps = torch.randn((), generator=generator, device=device)
     z = (None if config.host_z else
          torch.randn(batch, config.z_dim, generator=generator,
@@ -76,16 +93,15 @@ def _waiting(config: Config):
         waiting.append('reference_metrics')
     if config.update_sn:
         waiting.append('update_sn')
-    if config.dtype != 'float32':
-        waiting.append(f'dtype={config.dtype!r}')
     if waiting:
         raise NotImplementedError(
             f'{", ".join(waiting)}: not ported yet (the port trains '
-            "update_mode='faithful' in float32 with frozen spectral norms)")
+            "update_mode='faithful' with frozen spectral norms)")
 
 
 def make_train_step(nets: Networks, config: Config):
     _waiting(config)
+    compute_dtype = COMPUTE_DTYPES[config.dtype]
     exact_f32()
     opt = RMSProp(config.learning_rate)
     z_dim = config.z_dim
@@ -162,20 +178,21 @@ def make_train_step(nets: Networks, config: Config):
         metrics.update(parts)
 
     def train_step(state: TrainState, images, z, draws: Draws):
-        """images: NHWC [B, H, W, 3] in [-1, 1]; z: the batch's [B, z_dim
-        (+1)] latents and class column (`host_z`), or its [B, 1] class
-        column (device z, the latents in `draws.z`). Updates `state` in
-        place and returns it with the step's 11 metrics (0-d tensors)."""
+        """images: NHWC [B, H, W, 3] in [-1, 1] (float32, or already
+        bfloat16); z: the batch's [B, z_dim (+1)] latents and class column
+        (`host_z`), or its [B, 1] class column (device z, the latents in
+        `draws.z`). Updates `state` in place and returns it with the
+        step's 11 metrics (0-d float32 tensors)."""
         metrics = {}
         z = z.float()
         if not config.host_z:
             z = torch.cat([draws.z.float(), z], dim=1)
         labels = z[:, -1].long() if config.multiclasses else None
-        z_lat = z[:, :z_dim] if config.multiclasses else z
-        x = images.float().permute(0, 3, 1, 2)
+        z_lat = z[:, :z_dim] if config.multiclasses else z   # f32 target
+        x = images.to(compute_dtype).permute(0, 3, 1, 2)
         edge_real = x[:, :, :, :half_w]
         image_real = x[:, :, :, half_w:config.output_width]
-        z_in = nets.gen_input(z_lat, labels)
+        z_in = nets.gen_input(z_lat.to(compute_dtype), labels)
 
         # the critics' fakes, one generator forward without a graph (G
         # does not change before group 5)

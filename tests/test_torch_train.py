@@ -18,6 +18,13 @@ sensitivity, the largest of three such jittered JAX runs made here, plus
 a small floor; and tightly where no rounding reaches: the classifier sees
 only the real images, and the critics' first losses come before any
 update.
+
+The bfloat16 step (`dtype='bfloat16'`, with the classifier's kernels
+switched on) is held to JAX's bfloat16 step from the same weights and
+draws, the blend weights drawn in bfloat16 as JAX draws them. A 1e-6
+jitter vanishes in the cast to bfloat16, so JAX's bfloat16 sensitivity is
+measured with the images and latents moved by about one bfloat16 rounding
+(BF16_JITTER, relative), the largest of three such runs.
 """
 import json
 import math
@@ -53,20 +60,25 @@ NETS = ['G1', 'G2', 'D', 'D_patch2', 'D_patch3', 'D2', 'E']
 SENSITIVITY_X = 4.0
 METRIC_FLOOR = 2e-4       # relative to max(1, |metric|)
 PARAM_FLOOR = 2e-3        # relative to the norm of the network's update
+# bfloat16: |port - JAX| <= SENSITIVITY_BF16_X * sensitivity + floor, with
+# inputs jittered by BF16_JITTER relative (bfloat16 keeps 8 bits)
+BF16_JITTER = 2.0 ** -8
+SENSITIVITY_BF16_X = 2.0
+SWITCHES = ('EDGEGAN_PALLAS_PRELU', 'EDGEGAN_PALLAS_GATE')
 
 
-def make_batch(k, jitter=None):
+def make_batch(k, jitter=None, scale=1e-6):
     """Step k's images [B, H, W, 3] and host z [B, z_dim + 1] (latents
     and the class column); `jitter` (a RandomState) moves the images and
-    latents by about one part in 1e6."""
+    latents by about `scale` relative."""
     b = TINY['batch_size']
     images = np.random.RandomState(10 + k).randn(
         b, TINY['output_height'], TINY['output_width'], 3).clip(-1, 1)
     z = np.random.RandomState(20 + k).randn(b, TINY['z_dim'] + 1)
     z[:, -1] = np.random.RandomState(30 + k).randint(0, 3, b)
     if jitter is not None:
-        images = images * (1 + 1e-6 * jitter.randn(*images.shape))
-        z[:, :-1] *= 1 + 1e-6 * jitter.randn(b, TINY['z_dim'])
+        images = images * (1 + scale * jitter.randn(*images.shape))
+        z[:, :-1] *= 1 + scale * jitter.randn(b, TINY['z_dim'])
     return images.astype(np.float32), z.astype(np.float32)
 
 
@@ -78,14 +90,17 @@ def _flat(tree):
     return np.concatenate([np.ravel(a) for a in jax.tree.leaves(tree)])
 
 
-def jax_draws(encode, params, aux, rng):
+def jax_draws(encode, params, aux, rng, dtype=jnp.float32):
     """The JAX step's draws for `rng` (train/step.py:125-126): each
-    critic's alpha, and the encoder's scalar eps, recovered from
-    `encode` (the JAX encoder) as (z - mu)/exp(log_sigma) at the entry
-    where that is best conditioned."""
+    critic's alpha, drawn in the step's `dtype` as losses.py:102 draws it
+    (held here in float32, exactly), and the encoder's scalar eps (drawn
+    in float32 in either dtype), recovered from `encode` (the JAX
+    encoder) as (z - mu)/exp(log_sigma) at the entry where that is best
+    conditioned."""
     b = TINY['batch_size']
     alpha = {name: torch.from_numpy(np.asarray(jax.random.uniform(
-        jax.random.fold_in(rng, i), (b, 1, 1, 1), jnp.float32)).reshape(b))
+        jax.random.fold_in(rng, i), (b, 1, 1, 1), dtype)).astype(
+            np.float32).reshape(b))
         for i, name in enumerate(CRITICS)}
     half = jnp.zeros((b, TINY['output_height'], TINY['output_width'] // 2, 3))
     z, mu, ls = encode(params, aux, half, jax.random.fold_in(rng, 3))
@@ -105,12 +120,7 @@ def runs():
     cfg = Config(host_z=True, **TINY).derive('train')
     jnets = JNetworks(jcfg)
     params0, aux0 = bridge.random_jax_params(cfg, 0, critics=True)
-    tx = make_optimizer(jcfg.learning_rate)
-    groups = {'d': 'D', 'd_patch2': 'D_patch2', 'd_patch3': 'D_patch3',
-              'd2': 'D2', 'g1': 'G1', 'g2': 'G2', 'e': 'E'}
-    state = JTrainState(step=jnp.asarray(0, jnp.int32), params=params0,
-                        aux=aux0, opt_states={g: tx.init(params0[n])
-                                              for g, n in groups.items()})
+    state = _jax_state(jcfg, params0, aux0)
     jstep = jax.jit(j_make_train_step(jnets, jcfg))
     encode = jax.jit(jnets.encode)
     rngs = [jax.random.fold_in(jax.random.PRNGKey(3), k)
@@ -141,6 +151,15 @@ def runs():
                      bridge.export_jax_params(nets)[0]))
     assert tstate.step == STEPS
     return params0, ref, jittered, port
+
+
+def _jax_state(jcfg, params0, aux0):
+    tx = make_optimizer(jcfg.learning_rate)
+    groups = {'d': 'D', 'd_patch2': 'D_patch2', 'd_patch3': 'D_patch3',
+              'd2': 'D2', 'g1': 'G1', 'g2': 'G2', 'e': 'E'}
+    return JTrainState(step=jnp.asarray(0, jnp.int32), params=params0,
+                       aux=aux0, opt_states={g: tx.init(params0[n])
+                                             for g, n in groups.items()})
 
 
 def _sensitivity_report(params0, ref, jittered, port, k):
@@ -213,6 +232,95 @@ def _check_within_sensitivity(params0, ref, jittered, port, k):
     assert not bad, bad
 
 
+@pytest.fixture(scope='module')
+def bf16_runs(runs):
+    """Step 1 in bfloat16 from the float32 runs' weights and batch: JAX's,
+    JAX's on inputs jittered by BF16_JITTER (three runs), and the port's
+    with both classifier switches on, which also returns the calls its
+    step made to the kernels' dispatch (K1, K2, K5, K3, K4), counted by
+    spies; and JAX's float32 step 1 from `runs`."""
+    params0, ref32 = runs[0], runs[1][0]
+    jcfg = JConfig(host_z=True, dtype='bfloat16', **TINY).derive('train')
+    cfg = Config(host_z=True, dtype='bfloat16', **TINY).derive('train')
+    jnets = JNetworks(jcfg)
+    _, aux0 = bridge.random_jax_params(cfg, 0, critics=True)
+    state = _jax_state(jcfg, params0, aux0)
+    jstep = jax.jit(j_make_train_step(jnets, jcfg))
+    rng = jax.random.fold_in(jax.random.PRNGKey(3), 0)
+
+    def jax_run(jitter):
+        images, z = make_batch(0, jitter, BF16_JITTER)
+        st, m = jstep(state, jnp.asarray(images), jnp.asarray(z), rng)
+        return {n: float(v) for n, v in m.items()}, _tree_np(st.params)
+
+    ref = jax_run(None)
+    jittered = [jax_run(np.random.RandomState(seed)) for seed in (97, 98, 99)]
+    draws = jax_draws(jax.jit(jnets.encode), params0, aux0, rng,
+                      jnp.bfloat16)
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        for name in SWITCHES:
+            mp.setenv(name, '1')
+        for name in ('_forward', 'instance_norm_act_bwd', 'prelu_bwd',
+                     'mru_gate_blend', 'mru_gate_bwd'):
+            fn = getattr(kernels, name)
+            mp.setattr(kernels, name, lambda *a, _f=fn, _n=name:
+                       calls.append(_n) or _f(*a))
+        nets = bridge.load_jax_params(Networks(cfg, critics=True), params0,
+                                      aux0)
+        images, z = make_batch(0)
+        _, m = make_train_step(nets, cfg)(
+            create_train_state(nets), torch.from_numpy(images),
+            torch.from_numpy(z), draws)
+    port = ({n: v.item() for n, v in m.items()},
+            bridge.export_jax_params(nets)[0])
+    return params0, ref, jittered, port, ref32, calls
+
+
+def test_bf16_step_matches_jax_bf16(bf16_runs):
+    """The port's bfloat16 step, classifier kernels on, against JAX's
+    bfloat16 step: every metric and every network's update within
+    SENSITIVITY_BF16_X times JAX's own bfloat16 sensitivity plus the
+    float32 floors; weights, slots and metrics stay float32. The
+    classifier's update is also allowed JAX's own bfloat16 error, the
+    distance of JAX's bfloat16 update from its float32 one: JAX on the
+    CPU moves the classifier's bias updates by up to 3x their size in
+    bfloat16, a change no input jitter reaches (the classifier draws no
+    blend weight), while the port's stay within 4% of JAX's float32 ones
+    (both measured on these weights)."""
+    params0, (jm, jp), jittered, (pm, pp), (fm, fp), _ = bf16_runs
+    assert set(pm) == set(jm) and all(math.isfinite(v) for v in pm.values())
+    assert all(a.dtype == np.float32 for a in jax.tree.leaves(pp))
+    bad = []
+    for n in jm:
+        d = abs(pm[n] - jm[n])
+        own = max(abs(run[0][n] - jm[n]) for run in jittered)
+        if d > SENSITIVITY_BF16_X * own + METRIC_FLOOR * max(1.0, abs(jm[n])):
+            bad.append(f'{n}: port {d:.3g}, jittered JAX {own:.3g}')
+    for net in NETS:
+        start = _flat(params0[net])
+        dj = _flat(jp[net]) - start
+        d = np.linalg.norm(_flat(pp[net]) - start - dj)
+        own = max(np.linalg.norm(_flat(run[1][net]) - start - dj)
+                  for run in jittered)
+        if net == 'D2':
+            own = max(own, np.linalg.norm(_flat(fp[net]) - start - dj))
+        if d > SENSITIVITY_BF16_X * own + PARAM_FLOOR * np.linalg.norm(dj):
+            bad.append(f'{net} update: port {d:.3g}, JAX sensitivity '
+                       f'{own:.3g}')
+    assert not bad, bad
+
+
+def test_bf16_step_launches_every_kernel(bf16_runs):
+    """One bfloat16 step with both switches on calls K5 42 times (14
+    PReLUs x 3 classifier backwards), K3 and K4 12 times each (4 gates x
+    3 classifier passes), and K1 and K2 21 and 12 times, as in float32."""
+    calls = bf16_runs[-1]
+    assert {n: calls.count(n) for n in set(calls)} == {
+        '_forward': 21, 'instance_norm_act_bwd': 12, 'prelu_bwd': 42,
+        'mru_gate_blend': 12, 'mru_gate_bwd': 12}
+
+
 def test_launches_per_step_and_waiting_options(monkeypatch):
     """One step calls K1 21 times (7 generator forwards: the encoder's
     input comes from G1 alone) and K2 12 times (2 updates x 2 generators x
@@ -241,8 +349,7 @@ def test_launches_per_step_and_waiting_options(monkeypatch):
     assert len(metrics) == 10 and float(metrics['loss_g_ac']) == 0
     for kw, name in ((dict(update_mode='fast'), 'update_mode'),
                      (dict(reference_metrics=True), 'reference_metrics'),
-                     (dict(update_sn=True), 'update_sn'),
-                     (dict(dtype='bfloat16'), 'dtype')):
+                     (dict(update_sn=True), 'update_sn')):
         with pytest.raises(NotImplementedError, match=name):
             make_train_step(nets, Config(**TINY, **kw).derive('train'))
 
