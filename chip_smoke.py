@@ -9,16 +9,24 @@ the package is missing, and on any failed check.
 
 1. Prints the card's name and power limit (nvidia-smi) and builds the
    hand-written kernels from edgegan_torch/csrc (nvcc, sm_90a, one
-   process per source).
+   process per source); prints the registers and spills per thread of
+   K1's and K2's kernels in each variant.
 2. K1 phase: `instance_norm_act` against its plain PyTorch version on the
    card, at the three shapes the generators give it (batch 16 and 64,
    float32 and bfloat16, no activation / relu / lrelu, one constant plane
-   in each input), with the stated limits; its time from CUDA events
-   beside its byte bound, the plain version's time and F.instance_norm +
-   relu's (a yardstick only: not the same function).
+   in each input), with the stated limits, each in the lane-group
+   variant; its time from CUDA events and its device time per call from
+   `torch.profiler` (warm and cold L2) beside its byte bound, the plain
+   version's time and F.instance_norm + relu's (a yardstick only: not
+   the same function). At batch 64 the multi-pass kernel (one block per
+   plane, the earlier design) is timed the same way on the same inputs.
 3. K2 phase: `instance_norm_act_bwd` the same way against
    `instance_norm_act_bwd_plain`, and the autograd Function's gradient
-   (K1 forward, K2 backward) against autograd of the plain forward.
+   (K1 forward, K2 backward) against autograd of the plain forward. Then
+   both kernels in both variants (lane group, multi-pass) at ragged,
+   generator, large and misaligned planes (`ops/in_checks.py`): within
+   the limits, the plain versions within them of float64, two runs
+   bitwise equal, launch counts per variant as planned.
 4. K5 phase: `prelu_bwd` against `prelu_bwd_plain` at the classifier's 14
    PReLU shapes at batch 64, float32 and bfloat16, leaks 0.2 and 1.5,
    exact zeros in x: dx within K1's limits, dleak within DLEAK_RTOL of the
@@ -46,16 +54,19 @@ the package is missing, and on any failed check.
    2 steps with `--dtype bfloat16` and both classifier switches on
    (EDGEGAN_PALLAS_PRELU=1, EDGEGAN_PALLAS_GATE=1). Every metric must be
    finite, every optimizer group must move, and the kernels must launch
-   K1 21, K2 12 times per step, and K5 42, K3 12, K4 12 times per step
-   with the switches on, 0 with them off (the default).
+   K1 21, K2 12 times per step, all in the lane-group variant, and K5
+   42, K3 12, K4 12 times per step with the switches on, 0 with them off
+   (the default).
 8. One training step at full width and batch 4 on the card against the
    same step on the CPU, from the same weights and random draws; and a
    second card step with both switches on, against the same CPU step.
 9. Time per training step at batch 64 (CUDA events and host clock, peak
    memory) in float32 and bfloat16, switches off and on (in turns: off,
    on, on, off); device time per optimizer group and the `torch.profiler`
-   split for float32 switches off and bfloat16 switches on, with each
-   kernel's device time per step.
+   split for each setting, with each kernel's device time per step (not
+   measured where the profile recorded fewer of its kernels than were
+   launched); K1 and K2 must launch 21 and 12 times per profiled step,
+   all in lane groups (`LAUNCHES`).
 10. Prints one JSON line describing every kernel, then
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -93,6 +104,7 @@ K2_TOL = {'float32': dict(atol=1e-4, rtol=1e-4),
 # kernel and the plain version may each take either slope, so those
 # elements are left out of the comparison (and counted).
 GATE_BAND = 1e-4
+PROFILED_STEPS = 5
 K1_PER_STEP = 21   # 7 generator forwards (G1 alone for the encoder's input)
 K2_PER_STEP = 12   # 2 generator updates x (G1, G2) x 3 DeconvBlocks
 # The classifier at batch 64 on the 64x64 photo half, (C, H, W) with the
@@ -146,6 +158,85 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_us(fn, match: str, inputs, n: int = 30, windows: int = 3):
+    """Device time per call, in µs, of the kernels whose names hold
+    `match`, from `torch.profiler` over `n` calls of `fn(*inputs[0])`
+    (warm: the same tensors every call, in L2 after the first) and over
+    `n` calls that rotate through `inputs` (cold: together larger than
+    the 50 MB L2). Returns (warm, cold), each None (not measured) where
+    no kernel was recorded. CUDA events over back-to-back calls measure
+    the wrapper's host time at these sizes instead. The profiler at times
+    drops kernel records of a window (seen: 14 and 0 of 30), so up to
+    `windows` windows are profiled until n kernels are recorded; the mean
+    is over those recorded, and a shortfall is printed."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = []
+    for rotate in (False, True):
+        spans = []
+        for _ in range(windows):
+            fn(*inputs[0])
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for i in range(n):
+                    fn(*inputs[i % len(inputs) if rotate else 0])
+                torch.cuda.synchronize()
+            spans += [e.time_range.end - e.time_range.start
+                      for e in prof.events()
+                      if e.device_type == DeviceType.CUDA and match in e.name]
+            if len(spans) >= n:
+                break
+        if len(spans) < n:
+            print(f'  profile recorded {len(spans)} {match} kernels in '
+                  f'{windows} windows of {n} calls '
+                  f'({"cold" if rotate else "warm"})'
+                  + ('; mean over those' if spans else ': not measured'))
+        out.append(sum(spans) / len(spans) if spans else None)
+    return tuple(out)
+
+
+def _us(v) -> str:
+    return 'not measured' if v is None else f'{v:.2f} us'
+
+
+def _add(a, b):
+    """a + b, or None (not measured) where either is None."""
+    return None if a is None or b is None else a + b
+
+
+def _ms(us):
+    """µs in ms; None (not measured) stays None."""
+    return None if us is None else us / 1e3
+
+
+def _f4(v) -> str:
+    return 'not measured' if v is None else f'{v:.4f}'
+
+
+def cold_copies(make, nbytes: int):
+    """Enough tensor tuples from `make()` to hold over 120 MB together
+    (at least 2), so that a rotation through them misses the L2."""
+    return [make() for _ in range(max(2, -(-120 * 2 ** 20 // nbytes)))]
+
+
+def multi_pass(entry, x, *tensors):
+    """One launch of K1's or K2's multi-pass kernel (`entry`, variant 0:
+    one block per plane, the earlier design) with relu on contiguous
+    CUDA `x` and the other tensors of its shape, outputs last. Only for
+    timing it beside the lane groups: not counted in `LAUNCHES`."""
+    from edgegan_torch.ops import kernels
+    b, c, h, w = x.shape
+    err = entry(x.data_ptr(), *(t.data_ptr() for t in tensors), b * c,
+                h * w, kernels._DTYPES[x.dtype], kernels._ACTS['relu'],
+                kernels.IN_VARIANTS['multi_pass'], kernels.IN_THREADS, 0,
+                kernels._stream(x))
+    check(err == 0, f'multi-pass launch failed: CUDA error {err}')
+    return tensors[-1]
+
+
 def k1_bounds_ms(shape, dtype):
     """(bytes, operations) lower bounds of one K1 call: each input element
     read once and each output written once, over the memory rate; its
@@ -159,22 +250,80 @@ def k1_bounds_ms(shape, dtype):
             1e3 * K1_OPS_PER_ELEMENT * n / F32_OPS_PER_S)
 
 
+def in_registers(card: str):
+    """Registers and local memory (spill) bytes per thread of K1's and
+    K2's kernels as built (cudaFuncGetAttributes, the numbers
+    `nvcc -Xptxas -v` prints), relu, in the variant each plane size takes:
+    the generators' planes (lane groups) and 65536 elements (multi-pass).
+    Returns {'K1 float32 1024 lane_group 32x8': (regs,
+    local bytes), ...}."""
+    import ctypes
+
+    import torch
+
+    from edgegan_torch.ops import _build, kernels
+    lib = _build.library()
+    out = (ctypes.c_int * 2)()
+    table = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split('.')[-1]
+        for hw in [h * w for _, h, w in SERVE_SHAPES] + [65536]:
+            variant, lanes, vectors = kernels.instance_norm_plan(hw, dtype, 0)
+            for bwd, kname in ((0, 'K1'), (1, 'K2')):
+                err = lib.edgegan_instance_norm_act_attrs(
+                    bwd, kernels._DTYPES[dtype], 1,
+                    kernels.IN_VARIANTS[variant], lanes, vectors, out)
+                check(err == 0, f'{kname} {variant} attributes: error {err}')
+                key = f'{kname} {dname} {hw} {variant} {lanes}x{vectors}'
+                table[key] = (out[0], out[1])
+                print(f'{key}: {out[0]} registers per thread, {out[1]} bytes '
+                      f'of local memory (spills) [{card}]')
+    return table
+
+
+def previous_design_us(name, entry, x, *tensors):
+    """Device time per call (warm, cold L2), in µs, of K1's or K2's
+    multi-pass kernel at x's shape, with relu, after checking its output
+    against the lane-group kernel's on the same inputs (`tensors`: the
+    inputs after x; the output is made here)."""
+    import torch
+
+    from edgegan_torch.ops import kernels
+    fn = (kernels.instance_norm_act if name == 'instance_norm_act_fwd'
+          else kernels.instance_norm_act_bwd)
+    got = multi_pass(entry, x, *tensors, torch.empty_like(x))
+    want = fn(x, *tensors, 'relu')
+    dname = str(x.dtype).split('.')[-1]
+    tol = TOL[dname] if name == 'instance_norm_act_fwd' else K2_TOL[dname]
+    band = kernels.instance_norm_act_plain(x, None).float().abs() < GATE_BAND
+    err, ok, _ = _close(got, want, tol, band)
+    check(ok, f'{name} multi-pass differs from the lane group by {err:.3g}')
+    return device_us(
+        lambda *t: multi_pass(entry, *t), name, cold_copies(
+            lambda: (x.clone(),) + tuple(t.clone() for t in tensors)
+            + (torch.empty_like(x),),
+            (2 + len(tensors)) * x.numel() * x.element_size()))
+
+
 def kernel_phase(card: str):
     """K1 against its plain version at the serving shapes; returns the
     numbers for the JSON line."""
     import torch
     import torch.nn.functional as F
 
-    from edgegan_torch.ops import kernels
+    from edgegan_torch.ops import _build, kernels
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(0)
     max_err = {'float32': 0.0, 'bfloat16': 0.0}
     per_batch = {}  # (batch, dtype) -> summed ms over the three shapes
+    # dtype -> device µs (warm, cold) of the multi-pass kernel at batch 64,
+    # summed over the three shapes
+    previous = {}
     for batch in (16, 64):
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split('.')[-1]
             sums = dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
-                        library_ms=0.0)
+                        library_ms=0.0, device_ms=0.0, cold_ms=0.0)
             for c, h, w in SERVE_SHAPES:
                 shape = (batch, c, h, w)
                 x = (torch.randn(shape, device=dev, generator=gen) * 2 + 0.5
@@ -196,27 +345,47 @@ def kernel_phase(card: str):
                     check(bool((y[0, 0] == 0).all()),
                           'K1 constant plane is not 0')
                     max_err[dname] = max(max_err[dname], err)
+                plan = kernels.instance_norm_plan(h * w, dtype, x.data_ptr())
+                check(plan[0] == 'lane_group', f'K1 {shape} {dname}: {plan}')
                 ms = cuda_ms(lambda: kernels.instance_norm_act(x, 'relu'),
                              200)
+                warm_us, cold_us = device_us(
+                    lambda t: kernels.instance_norm_act(t, 'relu'),
+                    'instance_norm_act_fwd',
+                    cold_copies(lambda: (x.clone(),),
+                                2 * x.numel() * x.element_size()))
                 plain = cuda_ms(
                     lambda: kernels.instance_norm_act_plain(x, 'relu'), 50)
                 lib = cuda_ms(lambda: F.relu(F.instance_norm(x)), 200)
                 by_bytes, by_ops = k1_bounds_ms(shape, dtype)
-                print(f'K1 time {dname} {list(shape)} relu: {ms:.4f} ms, '
-                      f'bound {max(by_bytes, by_ops):.4f} ms (bytes '
-                      f'{by_bytes:.4f}, operations {by_ops:.4f}), plain '
-                      f'{plain:.4f} ms, F.instance_norm+relu {lib:.4f} ms '
-                      f'(not the same function: eps is inside the sqrt) '
+                if batch == 64:
+                    mp = previous_design_us(
+                        'instance_norm_act_fwd',
+                        _build.library().edgegan_instance_norm_act_fwd, x)
+                    previous[dname] = tuple(
+                        _add(a, b) for a, b in zip(
+                            previous.get(dname, (0, 0)), mp))
+                    print(f'K1 multi-pass (one block per plane) {dname} '
+                          f'{list(shape)} relu: device {_us(mp[0])} warm / '
+                          f'{_us(mp[1])} cold L2 (profile) [{card}]')
+                print(f'K1 time {dname} {list(shape)} relu, {plan[0]} '
+                      f'{plan[1]}x{plan[2]}: {ms:.4f} ms (CUDA events), '
+                      f'device {_us(warm_us)} warm / {_us(cold_us)} cold '
+                      f'L2 (profile), bound {max(by_bytes, by_ops):.4f} ms '
+                      f'(bytes {by_bytes:.4f}, operations {by_ops:.4f}), '
+                      f'plain {plain:.4f} ms, F.instance_norm+relu {lib:.4f} '
+                      f'ms (not the same function: eps is inside the sqrt) '
                       f'[{card}]')
                 for k, v in zip(('ms', 'plain_ms', 'bytes_ms', 'ops_ms',
-                                 'library_ms'),
-                                (ms, plain, by_bytes, by_ops, lib)):
-                    sums[k] += v
+                                 'library_ms', 'device_ms', 'cold_ms'),
+                                (ms, plain, by_bytes, by_ops, lib,
+                                 _ms(warm_us), _ms(cold_us))):
+                    sums[k] = _add(sums[k], v)
             per_batch[(batch, dname)] = sums
             print(f'K1 per generator (3 launches) at batch {batch} {dname}: '
-                  + ', '.join(f'{k} {v:.4f}' for k, v in sums.items())
+                  + ', '.join(f'{k} {_f4(v)}' for k, v in sums.items())
                   + f' [{card}]')
-    return max_err, per_batch
+    return max_err, per_batch, previous
 
 
 def _close(got, ref, tol, skip=None):
@@ -250,17 +419,17 @@ def k2_phase(card: str):
     import torch
     import torch.nn.functional as F
 
-    from edgegan_torch.ops import kernels
+    from edgegan_torch.ops import _build, kernels
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(1)
     max_err = {'float32': 0.0, 'bfloat16': 0.0}
-    per_batch = {}
+    per_batch, previous = {}, {}
     for batch in (16, 64):
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split('.')[-1]
             tol = K2_TOL[dname]
             sums = dict(ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
-                        yardstick_ms=0.0)
+                        yardstick_ms=0.0, device_ms=0.0, cold_ms=0.0)
             for c, h, w in SERVE_SHAPES:
                 shape = (batch, c, h, w)
                 x = (torch.randn(shape, device=dev, generator=gen) * 2 + 0.5
@@ -283,8 +452,16 @@ def k2_phase(card: str):
                     check(bool(torch.isfinite(dx.float()).all()),
                           f'K2 {dname} {shape} {act} not finite')
                     max_err[dname] = max(max_err[dname], err)
+                plan = kernels.instance_norm_plan(
+                    h * w, dtype, x.data_ptr() | g.data_ptr())
+                check(plan[0] == 'lane_group', f'K2 {shape} {dname}: {plan}')
                 ms = cuda_ms(lambda: kernels.instance_norm_act_bwd(
                     x, g, 'relu'), 200)
+                warm_us, cold_us = device_us(
+                    lambda a, b: kernels.instance_norm_act_bwd(a, b, 'relu'),
+                    'instance_norm_act_bwd', cold_copies(
+                        lambda: (x.clone(), g.clone()),
+                        3 * x.numel() * x.element_size()))
                 plain = cuda_ms(lambda: kernels.instance_norm_act_bwd_plain(
                     x, g, 'relu'), 50)
                 xr = x.detach().requires_grad_(True)
@@ -292,19 +469,32 @@ def k2_phase(card: str):
                 yard = cuda_ms(lambda: torch.autograd.grad(
                     yr, xr, g, retain_graph=True), 200)
                 by_bytes, by_ops = k2_bounds_ms(shape, dtype)
-                print(f'K2 time {dname} {list(shape)} relu: {ms:.4f} ms, '
-                      f'bound {max(by_bytes, by_ops):.4f} ms (bytes '
-                      f'{by_bytes:.4f}, operations {by_ops:.4f}), plain '
-                      f'{plain:.4f} ms, backward of F.instance_norm+relu '
-                      f'{yard:.4f} ms (a yardstick, not the same function: '
-                      f'eps is inside the sqrt) [{card}]')
+                if batch == 64:
+                    mp = previous_design_us(
+                        'instance_norm_act_bwd',
+                        _build.library().edgegan_instance_norm_act_bwd, x, g)
+                    previous[dname] = tuple(
+                        _add(a, b) for a, b in zip(
+                            previous.get(dname, (0, 0)), mp))
+                    print(f'K2 multi-pass (one block per plane) {dname} '
+                          f'{list(shape)} relu: device {_us(mp[0])} warm / '
+                          f'{_us(mp[1])} cold L2 (profile) [{card}]')
+                print(f'K2 time {dname} {list(shape)} relu, {plan[0]} '
+                      f'{plan[1]}x{plan[2]}: {ms:.4f} ms (CUDA events), '
+                      f'device {_us(warm_us)} warm / {_us(cold_us)} cold '
+                      f'L2 (profile), bound {max(by_bytes, by_ops):.4f} ms '
+                      f'(bytes {by_bytes:.4f}, operations {by_ops:.4f}), '
+                      f'plain {plain:.4f} ms, backward of '
+                      f'F.instance_norm+relu {yard:.4f} ms (a yardstick, not '
+                      f'the same function: eps is inside the sqrt) [{card}]')
                 for k, v in zip(('ms', 'plain_ms', 'bytes_ms', 'ops_ms',
-                                 'yardstick_ms'),
-                                (ms, plain, by_bytes, by_ops, yard)):
-                    sums[k] += v
+                                 'yardstick_ms', 'device_ms', 'cold_ms'),
+                                (ms, plain, by_bytes, by_ops, yard,
+                                 _ms(warm_us), _ms(cold_us))):
+                    sums[k] = _add(sums[k], v)
             per_batch[(batch, dname)] = sums
             print(f'K2 per generator backward (3 launches) at batch {batch} '
-                  f'{dname}: ' + ', '.join(f'{k} {v:.4f}'
+                  f'{dname}: ' + ', '.join(f'{k} {_f4(v)}'
                                            for k, v in sums.items())
                   + f' [{card}]')
 
@@ -333,7 +523,46 @@ def k2_phase(card: str):
           f'band left out)')
     check(ok, 'the Function gradient differs from autograd of the plain '
               'forward')
-    return max_err, per_batch
+    return max_err, per_batch, previous
+
+
+def in_variants_phase(card: str):
+    """K1 and K2 in both variants against their plain versions, within TOL
+    and K2_TOL, by `in_checks.check_kernels`: the plane sizes of
+    `in_checks.EDGE_PLANES`, 37 planes with plane 0 constant, float32 and
+    bfloat16, three activations; and a contiguous input at a storage
+    offset of one element (off 16 bytes), which must take the multi-pass
+    kernels. Returns the largest differences."""
+    import torch
+
+    from edgegan_torch.ops import in_checks, kernels
+    dev = torch.device('cuda')
+    max_err = {'K1': 0.0, 'K2': 0.0}
+    seen = set()
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split('.')[-1]
+        for hw in in_checks.EDGE_PLANES:
+            x, g = in_checks.edge_inputs(dev, hw, dtype, seed=4)
+            cases = [(x, g, f'{dname} {list(x.shape)}')]
+            if hw == (8, 8):
+                cases.append((in_checks.shifted(x), in_checks.shifted(g),
+                              f'{dname} {list(x.shape)} at a storage '
+                              f'offset of 1'))
+            for xc, gc, label in cases:
+                want = kernels.instance_norm_plan(
+                    hw[0] * hw[1], dtype, xc.data_ptr() | gc.data_ptr())[0]
+                seen.add(want)
+                e1, e2 = in_checks.check_kernels(
+                    xc, gc, TOL[dname], K2_TOL[dname], want, label=label)
+                max_err['K1'] = max(max_err['K1'], e1)
+                max_err['K2'] = max(max_err['K2'], e2)
+                print(f'{label} ({want}): K1 and K2 within the limits, the '
+                      f'plain versions within them of float64, three '
+                      f'activations, two runs bitwise equal [{card}]')
+    check(seen == set(kernels.IN_VARIANTS), f'variants reached: {seen}')
+    print(f'K1/K2 variants: max abs diff K1 {max_err["K1"]:.3g}, K2 '
+          f'{max_err["K2"]:.3g} [{card}]')
+    return max_err
 
 
 @contextlib.contextmanager
@@ -642,11 +871,13 @@ def serving_phase(card: str):
         check(health.status == 200 and stats['ok'], f'healthz {stats}')
         check(launches == 6 * batches and batches > 0,
               f'K1 launched {launches} times for {batches} batches')
+        check(kernels.LAUNCHES['instance_norm_act.lane_group'] == launches,
+              f'K1 left the lane-group kernels: {kernels.LAUNCHES}')
         check(kernels.LAUNCHES['instance_norm_act_bwd'] == 0,
               'serving launched K2')
         print(f'serving: 4 PNG + 1 raw n=8 + healthz answered 200 in '
               f'{wall:.3f} s (host clock); {batches} batches, K1 launches '
-              f'{launches} = 6 per batch [{card}]')
+              f'{launches} = 6 per batch, all in lane groups [{card}]')
     finally:
         server.shutdown()
         server.server_close()
@@ -780,6 +1011,11 @@ def train_phase(card: str, tmp: str):
                 'prelu_bwd': on * K5_PER_STEP * steps,
                 'mru_gate_blend': on * K3_PER_STEP * steps,
                 'mru_gate_bwd': on * K4_PER_STEP * steps}
+        # every K1 and K2 call of the default configuration in a lane group
+        for name in ('instance_norm_act', 'instance_norm_act_bwd'):
+            for variant in kernels.IN_VARIANTS:
+                want[f'{name}.{variant}'] = (want[name] if variant ==
+                                             'lane_group' else 0)
         check(counts == want, f'{label}: launches {counts} for {steps} '
               f'steps, expected {want}')
         params, _ = bridge.export_jax_params(state.nets)
@@ -913,13 +1149,15 @@ def step_time_phase(card: str):
     in turns (off, on, on, off, off, on: 5 steps a turn, 15 per setting),
     then the optimizer-group split and the profile of each of the four
     settings. Returns {(dtype, switches): (CUDA-event ms, host ms, peak
-    GiB)} and the profiles' device ms per step by kernel, keyed the
+    GiB)} and the profiles' device ms per step by kernel (None where the
+    profile recorded fewer of its kernels than were launched), keyed the
     same way."""
     import numpy as np
     import torch
 
     from edgegan_torch import bridge
     from edgegan_torch.core.config import Config
+    from edgegan_torch.ops import kernels
     from edgegan_torch.train.networks import Networks
     from edgegan_torch.train.state import create_train_state
     from edgegan_torch.train.step import make_draws, make_train_step
@@ -972,20 +1210,48 @@ def step_time_phase(card: str):
             with classifier_switches(switches):
                 print(f'{label}:')
                 group_split(card, one)
-                by_name = profile_steps(
-                    card, f'training step batch {b} {label}', one, n=5,
-                    unit='step')
+                for k in kernels.LAUNCHES:
+                    kernels.LAUNCHES[k] = 0
+                by_name, calls = profile_steps(
+                    card, f'training step batch {b} {label}', one,
+                    n=PROFILED_STEPS, unit='step')
+                launched = {k: v / PROFILED_STEPS
+                            for k, v in kernels.LAUNCHES.items()}
+            # K1 and K2: every call of the profiled steps in a lane group
+            for name, want in (('instance_norm_act', K1_PER_STEP),
+                               ('instance_norm_act_bwd', K2_PER_STEP)):
+                check(launched[name] == launched[f'{name}.lane_group']
+                      == want, f'{label}: {name} launched {launched[name]:g}'
+                      f' times per step, {launched[f"{name}.lane_group"]:g}'
+                      f' in lane groups (expected {want}, all)')
             per_step = {}
-            for kname, parts in (
-                    ('instance_norm_act_fwd', ['instance_norm_act_fwd']),
-                    ('instance_norm_act_bwd', ['instance_norm_act_bwd']),
-                    ('prelu_bwd', ['prelu_bwd_kernel', 'sum_partials']),
-                    ('mru_gate_fwd', ['mru_gate_fwd']),
-                    ('mru_gate_bwd', ['mru_gate_bwd'])):
-                per_step[kname] = sum(v for k, v in by_name.items()
-                                      if any(p in k for p in parts))
-                print(f'  {kname}: {per_step[kname]:.4f} ms of device time '
-                      f'per step (profile, {label}) [{card}]')
+            # (profile name, its kernels' names, LAUNCHES key, kernels a
+            # launch)
+            for kname, parts, key, per_launch in (
+                    ('instance_norm_act_fwd', ['instance_norm_act_fwd'],
+                     'instance_norm_act', 1),
+                    ('instance_norm_act_bwd', ['instance_norm_act_bwd'],
+                     'instance_norm_act_bwd', 1),
+                    ('prelu_bwd', ['prelu_bwd_kernel', 'sum_partials'],
+                     'prelu_bwd', 2),
+                    ('mru_gate_fwd', ['mru_gate_fwd'], 'mru_gate_blend', 1),
+                    ('mru_gate_bwd', ['mru_gate_bwd'], 'mru_gate_bwd', 1)):
+                ms = sum(v for k, v in by_name.items()
+                         if any(p in k for p in parts))
+                n_calls = sum(v for k, v in calls.items()
+                              if any(p in k for p in parts))
+                want = per_launch * launched[key]
+                if round(n_calls * PROFILED_STEPS) != round(
+                        want * PROFILED_STEPS):
+                    per_step[kname] = None
+                    print(f'  {kname}: device time not measured: the profile '
+                          f'recorded {n_calls:g} of its {want:g} kernels per '
+                          f'step ({label}) [{card}]')
+                    continue
+                per_step[kname] = ms
+                print(f'  {kname}: {ms:.4f} ms of device time per step in '
+                      f'{n_calls:g} kernels, all that were launched '
+                      f'(profile, {label}) [{card}]')
             profiles[(dtype, switches)] = per_step
     return times, profiles
 
@@ -1089,7 +1355,7 @@ def profile_steps(card: str, label: str, step, n: int = 10,
     copies), its share of the window from the first device event to the
     last (the rest is the device waiting on the host), and the kernels
     that take the most device time. Returns {kernel name: device ms per
-    step}."""
+    step} and {kernel name: launches per step}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1104,12 +1370,13 @@ def profile_steps(card: str, label: str, step, n: int = 10,
                    if e.device_type == DeviceType.CUDA)
     if not spans:
         print(f'profile {label}: not measured (no device events recorded)')
-        return {}
-    busy, reach, by_name = 0.0, spans[0][0], {}
+        return {}, {}
+    busy, reach, by_name, calls = 0.0, spans[0][0], {}, {}
     for start, end, name in spans:
         busy += max(0.0, end - max(start, reach))  # union of the intervals
         reach = max(reach, end)
         by_name[name] = by_name.get(name, 0.0) + end - start
+        calls[name] = calls.get(name, 0) + 1
     window = reach - spans[0][0]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print(f'profile {label}: {len(spans) / n:.0f} device kernels and copies '
@@ -1119,7 +1386,8 @@ def profile_steps(card: str, label: str, step, n: int = 10,
     for name, us in top:
         print(f'  {100 * us / busy:5.1f}% {us / n / 1e3:.4f} ms/{unit} '
               f'{name[:90]}')
-    return {k: v / n / 1e3 for k, v in by_name.items()}
+    return ({k: v / n / 1e3 for k, v in by_name.items()},
+            {k: v / n for k, v in calls.items()})
 
 
 def _kernel_entry(name, source, replaces, sums, scale, launches,
@@ -1138,6 +1406,27 @@ def _kernel_entry(name, source, replaces, sums, scale, launches,
         'bound_by': ('bytes' if sums['bytes_ms'] >= sums['ops_ms']
                      else 'operations'),
         'library_ms': None, 'work': work, **extra}
+
+
+def in_extras(kname, sums, previous, results):
+    """K1's or K2's extra JSON fields: device time per call from the
+    profile, summed over the three generator shapes, per (batch, dtype),
+    warm and cold L2, and the same for the multi-pass kernel (the earlier
+    design) at batch 64; its registers per thread; its largest difference
+    from the plain version across the variants' plane sizes."""
+    return {
+        'device_ms_per_generator': {
+            f'batch {b} {d}': {'warm': v['device_ms'], 'cold': v['cold_ms']}
+            for (b, d), v in sums.items()},
+        'previous_device_ms': {
+            'design': 'multi-pass, one block per plane (variant 0), timed '
+                      'in this run; per generator, the three shapes summed',
+            **{f'batch 64 {d}': {'warm': _ms(warm), 'cold': _ms(cold)}
+               for d, (warm, cold) in previous.items()}},
+        'registers_per_thread': {
+            k: v[0] for k, v in results['K1/K2 registers'].items()
+            if k.startswith(kname)},
+        'variants_max_abs_err': results['K1/K2 variants'][kname]}
 
 
 def _step_times(sums):
@@ -1175,8 +1464,10 @@ def main() -> int:
               f'{time.perf_counter() - t:.1f} s [{card}]', flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
+        phase('K1/K2 registers', in_registers, card)
         phase('K1', kernel_phase, card)
         phase('K2', k2_phase, card)
+        phase('K1/K2 variants', in_variants_phase, card)
         phase('K5', k5_phase, card)
         phase('K3/K4', gate_phase, card)
         phase('serve', serving_phase, card)
@@ -1189,8 +1480,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
-    k1_err, k1_sums = results['K1']
-    k2_err, k2_sums = results['K2']
+    k1_err, k1_sums, k1_prev = results['K1']
+    k2_err, k2_sums, k2_prev = results['K2']
     k5_err, dleak_err, k5_steps = results['K5']
     gate_err, gate_steps = results['K3/K4']
     train_runs = results['train']
@@ -1219,7 +1510,11 @@ def main() -> int:
                            for d in ('float32', 'bfloat16')},
             train_step_device_ms={
                 f'{d}, switches {"on" if on else "off"}': p[
-                    'instance_norm_act_fwd'] for (d, on), p in prof.items()}),
+                    'instance_norm_act_fwd'] for (d, on), p in prof.items()},
+            train_step_yardstick_ms={
+                d: K1_PER_STEP / 3 * k1_sums[(64, d)]['library_ms']
+                for d in ('float32', 'bfloat16')},
+            **in_extras('K1', k1_sums, k1_prev, results)),
         # one training step at batch 64 in float32: the three shapes in
         # each of 2 generator updates x (G1, G2)
         _kernel_entry(
@@ -1236,7 +1531,8 @@ def main() -> int:
                            for d in ('float32', 'bfloat16')},
             train_step_device_ms={
                 f'{d}, switches {"on" if on else "off"}': p[
-                    'instance_norm_act_bwd'] for (d, on), p in prof.items()}),
+                    'instance_norm_act_bwd'] for (d, on), p in prof.items()},
+            **in_extras('K2', k2_sums, k2_prev, results)),
         _kernel_entry(
             'prelu_bwd', 'edgegan_torch/csrc/prelu_bwd.cu',
             'edgegan_tpu/ops/pallas_kernels.py:247', k5_steps['bfloat16'], 1,

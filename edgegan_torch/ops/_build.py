@@ -95,12 +95,18 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build())
             ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-            # (x, y, planes, hw, dtype, act, stream)
+            # (x, y, planes, hw, dtype, act, variant, lanes, vectors,
+            #  stream)
             fwd = lib.edgegan_instance_norm_act_fwd
-            fwd.argtypes = [ptr, ptr, i64, i64, i32, i32, ptr]
-            # (x, g, dx, planes, hw, dtype, act, stream)
+            fwd.argtypes = [ptr, ptr, i64, i64, i32, i32, i32, i32, i32, ptr]
+            # (x, g, dx, planes, hw, dtype, act, variant, lanes, vectors,
+            #  stream)
             bwd = lib.edgegan_instance_norm_act_bwd
-            bwd.argtypes = [ptr, ptr, ptr, i64, i64, i32, i32, ptr]
+            bwd.argtypes = [ptr, ptr, ptr, i64, i64, i32, i32, i32, i32, i32,
+                            ptr]
+            # (bwd, dtype, act, variant, lanes, vectors, int[2] out)
+            attrs = lib.edgegan_instance_norm_act_attrs
+            attrs.argtypes = [i32, i32, i32, i32, i32, i32, ptr]
             # (x, g, leak, dx, dleak, partials, n, partials_len, dtype,
             #  stream)
             prelu = lib.edgegan_prelu_bwd
@@ -112,7 +118,7 @@ def library() -> ctypes.CDLL:
             # (rg, img, g, drg, dimg, planes, hw, dtype, stream)
             gate_bwd = lib.edgegan_mru_gate_bwd
             gate_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i32, ptr]
-            for fn in (fwd, bwd, prelu, gate, gate_bwd):
+            for fn in (fwd, bwd, attrs, prelu, gate, gate_bwd):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib

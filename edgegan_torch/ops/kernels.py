@@ -20,13 +20,25 @@ K3, `mru_gate_blend`, and K4, `mru_gate_bwd`: the MRU unit's min-max gate
     `_gate_bwd_kernel` (l.317-343, `_gate_bwd` l.388-403).
   - Bounds: bytes, 4*n*itemsize (K3) and 5*n*itemsize (K4).
 
-K1 and K2 (csrc/instance_norm_act.cu) run one thread block per contiguous
-NCHW (batch, channel) plane, with float32 statistics, in the generators'
-three DeconvBlocks: K1 6 times per served batch and 21 times per training
-step, K2 12 times per training step. K3 and K4 also take one block per
-plane. K5, K3 and K4 run in the classifier, and only when their switches
-are on (`prelu_enabled`, `gate_enabled`): 42, 12 and 12 times per training
-step (three classifier passes, each through 14 PReLUs and 4 MRU gates).
+K1 and K2 (csrc/instance_norm_act.cu) normalise each contiguous NCHW
+(batch, channel) plane with float32 statistics, in the generators' three
+DeconvBlocks: K1 6 times per served batch and 21 times per training step,
+K2 12 times per training step. The plane is read from device memory once
+and held in registers, and the sums are taken from there, in one of two
+variants that `instance_norm_plan` picks from the plane's size and the
+tensors' alignment:
+  - 'lane_group': 4 to 32 threads per plane, several planes per block,
+    sums by warp shuffles, up to 1024 float32 or 2048 bfloat16 elements.
+    Every plane of the default configurations (64, 256 and 1024
+    elements) takes it.
+  - 'multi_pass': one block walks the plane once per sum; it takes larger
+    planes, and those that do not split into 16-byte vectors (a plane size
+    or a base address that is not a multiple of 16 bytes).
+Their bound is bytes, and one read of each input is what it allows.
+K3 and K4 take one block per plane. K5, K3 and K4 run in the classifier,
+and only when their switches are on (`prelu_enabled`, `gate_enabled`): 42,
+12 and 12 times per training step (three classifier passes, each through
+14 PReLUs and 4 MRU gates).
 
 Each kernel pair is one `torch.autograd.Function` with a first-order
 backward, as the JAX package's custom VJPs are: `instance_norm_act` saves
@@ -52,10 +64,18 @@ EPS = 1e-5
 _ACTS = {None: 0, 'relu': 1, 'lrelu': 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# K1's and K2's variants (instance_norm_act.cu) and their numbers there
+IN_VARIANTS = {'multi_pass': 0, 'lane_group': 1}
+IN_THREADS = 256      # threads a block, in both variants
+IN_MAX_VECTORS = 8    # 16-byte vectors a lane-group thread holds, at most
 # Launches per kernel, counted where the kernel is launched and nowhere
-# else. Callers reset an entry to 0 to count one run.
+# else; K1 and K2 also per variant ('instance_norm_act.lane_group', ...).
+# Callers reset an entry to 0 to count one run.
 LAUNCHES = {'instance_norm_act': 0, 'instance_norm_act_bwd': 0,
-            'prelu_bwd': 0, 'mru_gate_blend': 0, 'mru_gate_bwd': 0}
+            'prelu_bwd': 0, 'mru_gate_blend': 0, 'mru_gate_bwd': 0,
+            **{f'{k}.{v}': 0 for k in ('instance_norm_act',
+                                       'instance_norm_act_bwd')
+               for v in IN_VARIANTS}}
 # K5's scratch: one float32 partial of dleak per block, and so the cap on
 # its grid (8 blocks on each of the H100's 132 SMs)
 PRELU_PARTIALS = 1056
@@ -101,12 +121,23 @@ def _wide(x):
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
+def _plane_mean(t):
+    """Mean over each (b, c) plane as sum / n, a true division, as the TPU
+    kernels (pallas_kernels.py:108) and K1/K2 divide. On CUDA torch's mean,
+    and a division by a Python number, multiply by 1/n instead: that
+    leaves a constant plane of 63 elements a variance of ~1e-14, not 0,
+    and its output -0.023, not 0. On the CPU all three are bitwise the
+    same."""
+    s = t.sum(dim=(2, 3), keepdim=True)
+    return s / torch.full_like(s, t.shape[2] * t.shape[3])
+
+
 def _stats(x):
     """float32 (centred x, s, d) per plane: s = sqrt(var) (1 where
     var == 0), d = s + 1e-5 (1e-5 where var == 0)."""
     x32 = _wide(x)
-    xc = x32 - x32.mean(dim=(2, 3), keepdim=True)
-    var = (xc * xc).mean(dim=(2, 3), keepdim=True)
+    xc = x32 - _plane_mean(x32)
+    var = _plane_mean(xc * xc)
     nondeg = var > 0
     s = torch.sqrt(torch.where(nondeg, var, torch.ones_like(var)))
     return xc, s, torch.where(nondeg, s + EPS, torch.full_like(var, EPS))
@@ -140,9 +171,8 @@ def instance_norm_act_bwd_plain(x, g, activation: Optional[str] = None):
         g32 = torch.where(y > 0, g32, torch.zeros_like(g32))
     elif activation == 'lrelu':
         g32 = torch.where(y > 0, g32, 0.2 * g32)
-    g_mean = g32.mean(dim=(2, 3), keepdim=True)
-    gy_mean = (g32 * y).mean(dim=(2, 3), keepdim=True)
-    return ((g32 - g_mean) / d - y * gy_mean / s).to(x.dtype)
+    return ((g32 - _plane_mean(g32)) / d
+            - y * _plane_mean(g32 * y) / s).to(x.dtype)
 
 
 def _check_cuda(x, name: str):
@@ -178,24 +208,62 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f'{name} launch failed: CUDA error {err}')
 
 
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def instance_norm_plan(hw: int, dtype: torch.dtype, data_ptr: int):
+    """(variant, lanes, vectors) of K1/K2 for planes of `hw` elements of
+    `dtype` at `data_ptr` (the tensors' addresses OR-ed together, so that
+    one misaligned pointer shows): `lanes` threads own one plane, each
+    holding `vectors` 16-byte vectors of it.
+
+    - 'lane_group' while a plane fits 32 threads x 8 vectors (1024 float32
+      or 2048 bfloat16 elements): one vector a thread and as few lanes as
+      hold the plane (at least 4), or 32 lanes and as few vectors.
+    - 'multi_pass' (lanes 256, vectors 0) beyond that, and wherever the
+      plane does not split into whole 16-byte vectors from a 16-byte
+      boundary: `hw` not a multiple of 16 / itemsize, or `data_ptr` not a
+      multiple of 16."""
+    per_vector = 16 // dtype.itemsize
+    nvec, ragged = divmod(hw, per_vector)
+    if ragged or data_ptr % 16 or nvec > 32 * IN_MAX_VECTORS:
+        return 'multi_pass', IN_THREADS, 0
+    if nvec <= 32:
+        return 'lane_group', max(4, _pow2_at_least(nvec)), 1
+    return 'lane_group', 32, _pow2_at_least(-(-nvec // 32))
+
+
+def _launch_in(name: str, entry, x, *tensors, act: int):
+    """Launches K1 or K2 (`entry`) on contiguous NCHW `x` and the other
+    tensors of its shape (outputs last), in the variant that
+    `instance_norm_plan` picks; raises if the library refuses it."""
+    b, c, h, w = x.shape
+    addr = 0
+    for t in (x,) + tensors:
+        addr |= t.data_ptr()
+    variant, lanes, vectors = instance_norm_plan(h * w, x.dtype, addr)
+    with torch.cuda.device(x.device):
+        err = entry(x.data_ptr(), *(t.data_ptr() for t in tensors), b * c,
+                    h * w, _DTYPES[x.dtype], act, IN_VARIANTS[variant],
+                    lanes, vectors, _stream(x))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    LAUNCHES[f'{name}.{variant}'] += 1
+
+
 def _forward(x, activation: Optional[str]):
     """K1 on a CUDA tensor, its plain version on a CPU tensor."""
     act = _check_act(activation)
     if x.device.type == 'cpu':
         return instance_norm_act_plain(x, activation)
     _check_cuda(x, 'instance_norm_act')
-    b, c, h, w = x.shape
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
     from ._build import library
-    lib = library()
-    with torch.cuda.device(x.device):
-        err = lib.edgegan_instance_norm_act_fwd(
-            x.data_ptr(), y.data_ptr(), b * c, h * w, _DTYPES[x.dtype], act,
-            _stream(x))
-    _raise_on(err, 'instance_norm_act')
-    LAUNCHES['instance_norm_act'] += 1
+    _launch_in('instance_norm_act', library().edgegan_instance_norm_act_fwd,
+               x, y, act=act)
     return y
 
 
@@ -209,18 +277,12 @@ def instance_norm_act_bwd(x, g, activation: Optional[str] = None):
     if x.device.type == 'cpu' and g.device.type == 'cpu':
         return instance_norm_act_bwd_plain(x, g, activation)
     _check_like('instance_norm_act_bwd', x=x, g=g)
-    b, c, h, w = x.shape
     dx = torch.empty_like(x)
     if x.numel() == 0:
         return dx
     from ._build import library
-    lib = library()
-    with torch.cuda.device(x.device):
-        err = lib.edgegan_instance_norm_act_bwd(
-            x.data_ptr(), g.data_ptr(), dx.data_ptr(), b * c, h * w,
-            _DTYPES[x.dtype], act, _stream(x))
-    _raise_on(err, 'instance_norm_act_bwd')
-    LAUNCHES['instance_norm_act_bwd'] += 1
+    _launch_in('instance_norm_act_bwd',
+               library().edgegan_instance_norm_act_bwd, x, g, dx, act=act)
     return dx
 
 

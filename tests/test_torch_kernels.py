@@ -7,6 +7,7 @@ Tests marked `cuda` need the card; they skip without one and run on it
 with `python -m pytest --noconftest -m cuda tests/test_torch_kernels.py`.
 """
 import os
+import re
 import subprocess
 import sys
 
@@ -14,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from edgegan_torch.ops import kernels
+from edgegan_torch.ops import in_checks, kernels
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ACTS = [None, 'relu', 'lrelu']
@@ -34,11 +35,20 @@ def cuda():
     return torch.device('cuda')
 
 
-@pytest.mark.parametrize('act', ACTS)
-def test_plain_matches_pallas_interpret(act):
+# (act, plane H x W): the 8x4 planes of `_x`, and the sizes the kernels'
+# variants split on: 1, 9 and 63 elements (not whole 16-byte vectors) and
+# 4096 (beyond a lane group)
+IN_CASES = [pytest.param(act, hw, id=str(act) if hw == (8, 4)
+                         else f'{act}-{hw[0]}x{hw[1]}')
+            for hw in [(8, 4), (1, 1), (3, 3), (7, 9), (64, 64)]
+            for act in ACTS]
+
+
+@pytest.mark.parametrize('act,hw', IN_CASES)
+def test_plain_matches_pallas_interpret(act, hw):
     jnp = pytest.importorskip('jax.numpy')
     from edgegan_tpu.ops import pallas_kernels as pk
-    x = _x()
+    x = _x((2,) + hw + (6,))
     ref = np.asarray(pk.instance_norm_act(jnp.asarray(x), act, True))
     got = kernels.instance_norm_act_plain(
         torch.from_numpy(x).permute(0, 3, 1, 2), act)
@@ -61,14 +71,14 @@ def test_cpu_wrapper_is_plain_and_uncounted():
         kernels.instance_norm_act(x, 'tanh')
 
 
-@pytest.mark.parametrize('act', ACTS)
-def test_bwd_plain_matches_pallas_vjp(act):
+@pytest.mark.parametrize('act,hw', IN_CASES)
+def test_bwd_plain_matches_pallas_vjp(act, hw):
     """K2's plain version against `jax.vjp` of the Pallas custom VJP in
     interpret mode (its `_bwd_kernel`), constant plane included."""
     jax = pytest.importorskip('jax')
     jnp = jax.numpy
     from edgegan_tpu.ops import pallas_kernels as pk
-    x = _x()
+    x = _x((2,) + hw + (6,))
     g = np.random.RandomState(1).randn(*x.shape).astype(np.float32)
     _, vjp = jax.vjp(lambda t: pk.instance_norm_act(t, act, True),
                      jnp.asarray(x))
@@ -76,11 +86,25 @@ def test_bwd_plain_matches_pallas_vjp(act):
     got = kernels.instance_norm_act_bwd_plain(
         torch.from_numpy(x).permute(0, 3, 1, 2),
         torch.from_numpy(g).permute(0, 3, 1, 2), act)
-    # atol 1e-5 on the normal planes; on the constant plane dx is
-    # (g' - mean g')/1e-5, values up to ~1e5 whose float32 spacing is
-    # ~1e-2, so there the limit is relative (measured 3.9e-7)
-    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
-                               np.asarray(ref), atol=1e-5, rtol=1e-6)
+    got, ref = got.permute(0, 2, 3, 1).numpy(), np.asarray(ref)
+    if hw == (8, 4):
+        # atol 1e-5 on the normal planes; on the constant plane dx is
+        # (g' - mean g')/1e-5, values up to ~1e5 whose float32 spacing is
+        # ~1e-2, so there the limit is relative (measured 3.9e-7)
+        np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-6)
+        return
+    # the normal planes as above. On the constant plane (x[1, ..., 3]),
+    # mean g' summed in another order may differ by about float32 eps x
+    # max|g'|, and dx divides that by 1e-5: where g' lies near its mean,
+    # that is the whole of dx (measured 9.3e-4 on values of ~36, against
+    # the 0.04 allowed here)
+    const = np.zeros(x.shape, bool)
+    const[1, :, :, 3] = True
+    np.testing.assert_allclose(got[~const], ref[~const], atol=1e-5,
+                               rtol=1e-6)
+    spread = np.finfo(np.float32).eps * np.abs(g).max() / 1e-5
+    np.testing.assert_allclose(got[const], ref[const], atol=spread,
+                               rtol=1e-6)
 
 
 @pytest.mark.parametrize('act', ACTS)
@@ -94,6 +118,44 @@ def test_bwd_plain_is_autograd_of_plain_forward(act):
     ref, = torch.autograd.grad(kernels.instance_norm_act_plain(x, act), x, g)
     got = kernels.instance_norm_act_bwd_plain(x.detach(), g, act)
     torch.testing.assert_close(got, ref, atol=1e-9, rtol=1e-9)
+
+
+def _mean_formula(x, g, activation):
+    """K1's and K2's plain versions as written with torch's `mean`: the
+    plane means that `kernels._plane_mean` now takes as sum / n."""
+    x32, g32 = x.float(), g.float()
+    xc = x32 - x32.mean(dim=(2, 3), keepdim=True)
+    var = (xc * xc).mean(dim=(2, 3), keepdim=True)
+    nondeg = var > 0
+    s = torch.sqrt(torch.where(nondeg, var, torch.ones_like(var)))
+    d = torch.where(nondeg, s + kernels.EPS, torch.full_like(var, kernels.EPS))
+    y = xc / d
+    if activation == 'relu':
+        out = torch.relu(y)
+        g32 = torch.where(y > 0, g32, torch.zeros_like(g32))
+    elif activation == 'lrelu':
+        out = torch.where(y > 0, y, 0.2 * y)
+        g32 = torch.where(y > 0, g32, 0.2 * g32)
+    else:
+        out = y
+    dx = ((g32 - g32.mean(dim=(2, 3), keepdim=True)) / d
+          - y * (g32 * y).mean(dim=(2, 3), keepdim=True) / s)
+    return out.to(x.dtype), dx.to(x.dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('act', ACTS)
+def test_plain_is_bitwise_the_mean_formula_on_cpu(dtype, act):
+    """On the CPU, dividing the plane sums by n gives bitwise what torch's
+    mean gives, at the generators' planes and at a constant 7x9 one."""
+    gen = torch.Generator().manual_seed(7)
+    for c, h, w in [(256, 8, 8), (128, 16, 16), (64, 32, 32), (3, 7, 9)]:
+        x = (torch.randn(2, c, h, w, generator=gen) * 2 + 0.5).to(dtype)
+        x[0, 0] = 3.0
+        g = torch.randn(x.shape, generator=gen).to(dtype)
+        y, dx = _mean_formula(x, g, act)
+        assert torch.equal(kernels.instance_norm_act_plain(x, act), y)
+        assert torch.equal(kernels.instance_norm_act_bwd_plain(x, g, act), dx)
 
 
 def test_function_on_cpu_is_plain_forward_and_backward():
@@ -131,6 +193,77 @@ def test_non_cpu_wrapper_refuses_before_launch():
         kernels.instance_norm_act_bwd(x.detach(), torch.empty_like(x),
                                       'relu')
     assert kernels.LAUNCHES == before
+
+
+GEN_PLANES = [(256, 8, 8), (128, 16, 16), (64, 32, 32)]  # g_dconv_1..3
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _built_variants():
+    """The (variant, lanes, vectors) that csrc/instance_norm_act.cu builds
+    kernels for: its EDGEGAN_LANE_GROUP_SHAPES list and the multi-pass
+    kernel."""
+    with open(os.path.join(ROOT, 'edgegan_torch', 'csrc',
+                           'instance_norm_act.cu')) as f:
+        src = f.read()
+    shapes = src[src.index('#define EDGEGAN_LANE_GROUP_SHAPES'):]
+    shapes = shapes[:shapes.index('\n\n')]
+    built = {('lane_group', int(g), int(n))
+             for g, n in re.findall(r'X\((\d+), (\d+)\)', shapes)}
+    assert len(built) == 7, built
+    return built | {('multi_pass', 256, 0)}
+
+
+@pytest.mark.parametrize('batch', [16, 64])
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_plan_puts_generator_planes_in_lane_groups(batch, dtype):
+    """Every instance norm of the generators, served (batch 16) or trained
+    (batch 64), in either dtype, takes the register-resident lane-group
+    kernels: one plane to 4-32 threads, 1-8 vectors each."""
+    want = {torch.float32: [(16, 1), (32, 2), (32, 8)],
+            torch.bfloat16: [(8, 1), (32, 1), (32, 4)]}[dtype]
+    for (c, h, w), shape in zip(GEN_PLANES, want):
+        x = torch.empty(batch, c, h, w, dtype=dtype)
+        assert kernels.instance_norm_plan(h * w, dtype, x.data_ptr()) == (
+            'lane_group',) + shape
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_plan_sends_large_planes_to_multi_pass(dtype):
+    """Beyond 32 threads x 8 vectors (1024 float32 or 2048 bfloat16
+    elements) a plane is walked in passes: 4096 and 65536 elements."""
+    per_vector = 16 // dtype.itemsize
+    assert kernels.instance_norm_plan(256 * per_vector, dtype, 0) == (
+        'lane_group', 32, 8)
+    for hw in (256 * per_vector + per_vector, 4096, 65536):
+        assert kernels.instance_norm_plan(hw, dtype, 0) == (
+            'multi_pass', 256, 0)
+
+
+def test_plan_is_built_holds_the_plane_and_never_vectorises_ragged():
+    """For every plane size up to twice the lane groups' reach and every
+    misalignment: the plan names a kernel the source builds; a
+    vector variant is picked only for whole 16-byte vectors from a 16-byte
+    boundary, and holds the plane in at most twice the room it needs (or
+    in the smallest group); every other plane takes the multi-pass
+    kernel."""
+    built = _built_variants()
+    for dtype in DTYPES:
+        per_vector = 16 // dtype.itemsize
+        for hw in range(1, 2 * 32 * 8 * per_vector + 2):
+            for offset in (0, 2, 4, 8, 16, 48):
+                plan = kernels.instance_norm_plan(hw, dtype, 4096 + offset)
+                assert plan in built, (hw, dtype, offset, plan)
+                variant, lanes, vectors = plan
+                nvec, ragged = divmod(hw, per_vector)
+                if ragged or offset % 16:
+                    assert variant == 'multi_pass', (hw, dtype, offset)
+                elif variant != 'multi_pass':
+                    room = lanes * vectors
+                    assert nvec <= room, (hw, dtype, plan)
+                    assert 2 * nvec > room or room == 4, (hw, dtype, plan)
+                else:
+                    assert nvec > 32 * 8, (hw, dtype)
 
 
 @pytest.mark.cuda
@@ -212,6 +345,80 @@ def test_function_gradient_on_card(cuda):
     ref, = torch.autograd.grad(kernels.instance_norm_act_plain(x, 'relu'),
                                x, g)
     _gated_close(dx, ref, x, 'relu', atol=1e-4, rtol=1e-4)
+
+
+K1_TOL = {torch.float32: dict(atol=2e-5, rtol=0),
+          torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+# dx divides by d = sqrt(var) + 1e-5, and by 1e-5 on the constant plane
+K2_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+          torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('hw', in_checks.EDGE_PLANES,
+                         ids=lambda hw: f'{hw[0]}x{hw[1]}')
+def test_variants_match_plain_on_card(cuda, dtype, hw):
+    """Each variant, where the plan sends this plane size, against the
+    plain versions (and those against float64), with the per-variant
+    launch counts and two runs bitwise equal."""
+    x, g = in_checks.edge_inputs(cuda, hw, dtype)
+    variant, _, _ = kernels.instance_norm_plan(
+        hw[0] * hw[1], dtype, x.data_ptr() | g.data_ptr())
+    assert variant == ('lane_group' if hw in [(8, 8), (16, 16), (32, 32)]
+                       else 'multi_pass')
+    in_checks.check_kernels(x, g, K1_TOL[dtype], K2_TOL[dtype], variant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_misaligned_input_takes_multi_pass_on_card(cuda, dtype):
+    """A contiguous view at a storage offset of one element starts off a
+    16-byte boundary: K1 and K2 take the multi-pass kernel, and give what
+    the lane-group kernels give on the same values, within the limits. A
+    misaligned g alone sends K2 there too."""
+    x, g = in_checks.edge_inputs(cuda, (8, 8), dtype)
+    xs, gs = in_checks.shifted(x), in_checks.shifted(g)
+    tols = K1_TOL[dtype], K2_TOL[dtype]
+    in_checks.check_kernels(xs, gs, *tols, 'multi_pass')
+    in_checks.check_kernels(x, gs, *tols, 'lane_group',
+                            bwd_variant='multi_pass')
+    for act in ACTS:
+        torch.testing.assert_close(
+            kernels.instance_norm_act(xs, act).float(),
+            kernels.instance_norm_act(x, act).float(), **K1_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_library_refuses_impossible_variant_on_card(cuda):
+    """The C entry points launch a variant only where it is built and
+    holds the plane: 16 lanes x 1 vector hold a 64-element float32 plane;
+    4 x 1 do not, 12 lanes are not built, and a base off 16 bytes is
+    refused (cudaErrorInvalidValue, 1), as are multi-pass with vectors
+    and a variant 2, which is not built."""
+    from edgegan_torch.ops._build import library
+    lib = library()
+    x = torch.randn(1, 4, 8, 8, device=cuda)
+    y = torch.empty_like(x)
+    s = torch.cuda.current_stream().cuda_stream
+
+    def fwd(x_ptr, variant, lanes, vectors):
+        return lib.edgegan_instance_norm_act_fwd(
+            x_ptr, y.data_ptr(), 4, 64, 0, 1, variant, lanes, vectors, s)
+
+    assert fwd(x.data_ptr(), 1, 16, 1) == 0
+    assert fwd(x.data_ptr(), 1, 4, 1) == 1
+    assert fwd(x.data_ptr(), 1, 12, 1) == 1
+    assert fwd(x.data_ptr() + 4, 1, 16, 1) == 1
+    assert fwd(x.data_ptr(), 0, 256, 1) == 1
+    assert fwd(x.data_ptr(), 2, 256, 2) == 1
+    # a lane group holds a plane smaller than its room, too
+    assert lib.edgegan_instance_norm_act_bwd(
+        x.data_ptr(), x.data_ptr(), y.data_ptr(), 4, 64, 0, 0, 1, 32, 8,
+        s) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, kernels.instance_norm_act_bwd_plain(x, x),
+                               **K2_TOL[torch.float32])
 
 
 def test_port_imports_no_jax():
