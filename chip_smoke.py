@@ -34,11 +34,19 @@ the package is missing, and on any failed check.
    training step beside the byte bound, the plain version's and the
    backward of F.prelu's (a yardstick: no tie split, and the same
    function only for 0 <= leak <= 1); and the Function's gradients.
-5. K3/K4 phase: `mru_gate_blend` and `mru_gate_bwd` against their plain
-   versions at the classifier's four gate shapes at batch 64, float32 and
-   bfloat16, one flat plane and one tie in each; the Function's three
-   gradients against autograd of the plain chain; times beside the bounds
-   and the plain versions' (no single PyTorch call computes either).
+5. K3/K4 phases: the registers and spills per thread of K3's and K4's
+   kernels in each variant (none may spill); `mru_gate_blend` and
+   `mru_gate_bwd` against their plain versions at the classifier's four
+   gate shapes at batch 64, float32 and bfloat16, a flat plane and ties at
+   both extrema in each, in the variant `gate_plan` picks (block for unit
+   1, lane groups for units 2-4), two runs bitwise equal
+   (`ops/gate_checks.py`); the Function's three gradients against autograd
+   of the plain chain; device time per call from the profile (warm and
+   cold L2) beside the byte bound, and the multi-pass kernel (the earlier
+   design) on the same inputs, checked against the new one first; CUDA
+   events and the plain versions' times (no single PyTorch call computes
+   either). Then both kernels in every variant at ragged, unit-sized,
+   large and misaligned planes.
 6. Serving phase at full width: the default test configuration (64x128
    pairs, 14 classes, z_dim 100, gf_dim 64) with random weights from
    `bridge.random_jax_params` through the bridge, a `Batcher` on cuda
@@ -55,8 +63,9 @@ the package is missing, and on any failed check.
    (EDGEGAN_PALLAS_PRELU=1, EDGEGAN_PALLAS_GATE=1). Every metric must be
    finite, every optimizer group must move, and the kernels must launch
    K1 21, K2 12 times per step, all in the lane-group variant, and K5
-   42, K3 12, K4 12 times per step with the switches on, 0 with them off
-   (the default).
+   42, K3 12, K4 12 times per step with the switches on (K3/K4 split
+   across the variants as `gate_plan` sends the four gates), 0 with them
+   off (the default).
 8. One training step at full width and batch 4 on the card against the
    same step on the CPU, from the same weights and random draws; and a
    second card step with both switches on, against the same CPU step.
@@ -66,7 +75,8 @@ the package is missing, and on any failed check.
    split for each setting, with each kernel's device time per step (not
    measured where the profile recorded fewer of its kernels than were
    launched); K1 and K2 must launch 21 and 12 times per profiled step,
-   all in lane groups (`LAUNCHES`).
+   all in lane groups, and K3 and K4 12 each with the switches on, split
+   across the variants as planned (`LAUNCHES`).
 10. Prints one JSON line describing every kernel, then
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -695,82 +705,171 @@ def k5_phase(card: str):
     return max_err, dleak_err, per_step
 
 
-def gate_phase(card: str):
-    """K3 and K4 against their plain versions at the classifier's gate
-    shapes, and the Function's gradients against autograd of the plain
-    chain; returns the numbers for the JSON line (times per step)."""
+def gate_split(dtype):
+    """Calls per classifier pass of K3 (and of K4) in each variant: where
+    `gate_plan` sends the four gates in `dtype`."""
+    from edgegan_torch.ops import kernels
+    counts = dict.fromkeys(kernels.GATE_VARIANTS, 0)
+    for _, h, w in GATE_SHAPES:
+        counts[kernels.gate_plan(h * w, dtype, 0)[0]] += 1
+    return counts
+
+
+def gate_registers(card: str):
+    """Registers and local memory (spill) bytes per thread of K3's and K4's
+    kernels as built, in every (variant, lanes, vectors) that `gate_plan`
+    can pick; fails on a spill. Returns {'K3 float32 block 256x4': (regs,
+    local bytes), ...}."""
+    import ctypes
+
     import torch
 
-    from edgegan_torch.ops import kernels
+    from edgegan_torch.ops import _build, kernels
+    lib = _build.library()
+    out = (ctypes.c_int * 2)()
+    table = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split('.')[-1]
+        per_vector = 16 // dtype.itemsize
+        reach = kernels.IN_THREADS * kernels.GATE_BLOCK_VECTORS * per_vector
+        plans = sorted({kernels.gate_plan(hw, dtype, 0)
+                        for hw in range(1, reach + per_vector + 1)})
+        for variant, lanes, vectors in plans:
+            for bwd, kname in ((0, 'K3'), (1, 'K4')):
+                err = lib.edgegan_mru_gate_attrs(
+                    bwd, kernels._DTYPES[dtype],
+                    kernels.GATE_VARIANTS[variant], lanes, vectors, out)
+                check(err == 0, f'{kname} {variant} attributes: error {err}')
+                key = f'{kname} {dname} {variant} {lanes}x{vectors}'
+                table[key] = (out[0], out[1])
+                print(f'{key}: {out[0]} registers per thread, {out[1]} bytes '
+                      f'of local memory (spills) [{card}]')
+    spills = {k: v for k, v in table.items() if v[1]}
+    check(not spills, f'K3/K4 kernels spill: {spills}')
+    return table
+
+
+def gate_previous(fwd: bool, *tensors):
+    """One launch of K3's (fwd) or K4's multi-pass kernel (variant 0: one
+    block per plane, the earlier design) on contiguous CUDA tensors of one
+    shape, outputs last. Only for timing it beside the new design: not
+    counted in `LAUNCHES`."""
+    from edgegan_torch.ops import _build, kernels
+    lib = _build.library()
+    entry = lib.edgegan_mru_gate_fwd if fwd else lib.edgegan_mru_gate_bwd
+    x = tensors[0]
+    b, c, h, w = x.shape
+    err = entry(*(t.data_ptr() for t in tensors), b * c, h * w,
+                kernels._DTYPES[x.dtype], kernels.GATE_VARIANTS['multi_pass'],
+                kernels.IN_THREADS, 0, kernels._stream(x))
+    check(err == 0, f'gate multi-pass launch failed: CUDA error {err}')
+    return tensors[-1] if fwd else tensors[-2:]
+
+
+def gate_phase(card: str):
+    """K3 and K4 against their plain versions at the classifier's gate
+    shapes at batch 64 (`gate_checks.check_gate`: a flat plane and ties at
+    both extrema, launches per variant as planned, two runs bitwise
+    equal), and the Function's gradients against autograd of the plain
+    chain. Times each call with CUDA events and, from the profile, its
+    device time (warm and cold L2) beside the byte bound, and the
+    multi-pass kernel (the earlier design) on the same inputs, after
+    checking it against the new one. Returns the numbers for the JSON line
+    (times per training step: 3 classifier passes)."""
+    import torch
+
+    from edgegan_torch.ops import gate_checks, kernels
     dev = torch.device('cuda')
-    gen = torch.Generator(device=dev).manual_seed(6)
     max_err = {'K3': {'float32': 0.0, 'bfloat16': 0.0},
                'K4': {'float32': 0.0, 'bfloat16': 0.0}}
     per_step = {'K3': {}, 'K4': {}}
-
-    def gate_inputs(shape, dtype):
-        rg, ht, img, g = (torch.randn(shape, device=dev, generator=gen).to(
-            dtype) for _ in range(4))
-        rg[0, 0] = 1.5                               # a flat plane
-        top = rg[1, 1].max()
-        rg[1, 1, 0, 0] = rg[1, 1, -1, -1] = top      # a tie at its maximum
-        return rg, ht, img, g
-
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split('.')[-1]
-        sums = {k: dict.fromkeys(TIME_KEYS[:4], 0.0) for k in ('K3', 'K4')}
-        for c, h, w in GATE_SHAPES:
+        keys = TIME_KEYS[:4] + ('device_ms', 'cold_ms', 'previous_ms',
+                                'previous_cold_ms')
+        sums = {k: dict.fromkeys(keys, 0.0) for k in ('K3', 'K4')}
+        for i, (c, h, w) in enumerate(GATE_SHAPES):
             shape = (64, c, h, w)
-            rg, ht, img, g = gate_inputs(shape, dtype)
-            out = kernels.mru_gate_blend(rg, ht, img)
-            drg, dimg = kernels.mru_gate_bwd(rg, img, g)
-            ref = kernels.mru_gate_blend_plain(rg, ht, img)
-            rdrg, rdimg = kernels.mru_gate_bwd_plain(rg, img, g)
-            torch.cuda.synchronize()
-            for kname, got, want, tol in (
-                    ('K3 out', out, ref, TOL[dname]),
-                    ('K4 drg', drg, rdrg, K2_TOL[dname]),
-                    ('K4 dimg', dimg, rdimg, K2_TOL[dname])):
+            rg, ht, img, g = gate_checks.gate_inputs(dev, shape, dtype,
+                                                     seed=6 + i)
+            plan = kernels.gate_plan(h * w, dtype, rg.data_ptr()
+                                     | ht.data_ptr() | img.data_ptr()
+                                     | g.data_ptr())
+            check(plan[0] == ('block' if h * w == 4096 else 'lane_group'),
+                  f'gate {shape} {dname}: {plan}')
+            e3, e4 = gate_checks.check_gate(
+                rg, ht, img, g, TOL[dname], K2_TOL[dname], plan[0],
+                label=f'{dname} {list(shape)}')
+            max_err['K3'][dname] = max(max_err['K3'][dname], e3)
+            max_err['K4'][dname] = max(max_err['K4'][dname], e4)
+            print(f'K3/K4 {dname} {list(shape)} ({plan[0]} {plan[1]}x'
+                  f'{plan[2]}): K3 max abs diff {e3:.3g} (limit '
+                  f'{TOL[dname]}), K4 {e4:.3g} (limit {K2_TOL[dname]}), '
+                  f'two runs bitwise equal')
+            # the earlier design on the same inputs, checked first
+            prev_out = gate_previous(True, rg, ht, img, torch.empty_like(rg))
+            prev_grads = gate_previous(False, rg, img, g,
+                                       torch.empty_like(rg),
+                                       torch.empty_like(img))
+            for what, got, want, tol in (
+                    ('K3', prev_out, kernels.mru_gate_blend(rg, ht, img),
+                     TOL[dname]),
+                    *(('K4', a, b, K2_TOL[dname]) for a, b in zip(
+                        prev_grads, kernels.mru_gate_bwd(rg, img, g)))):
                 err, ok, _ = _close(got, want, tol)
-                print(f'{kname} {dname} {list(shape)}: max abs diff '
-                      f'{err:.3g} (limit atol {tol["atol"]} rtol '
-                      f'{tol["rtol"]})')
-                check(ok, f'{kname} {dname} {shape} differs from plain')
-                check(bool(torch.isfinite(got.float()).all()),
-                      f'{kname} {dname} {shape} not finite')
-                key = kname[:2]
-                max_err[key][dname] = max(max_err[key][dname], err)
+                check(ok, f'{what} {dname} {shape}: multi-pass differs from '
+                          f'{plan[0]} by {err:.3g}')
             n, item = rg.numel(), rg.element_size()
-            for key, fn, plain_fn, tensors, ops in (
-                    ('K3', lambda: kernels.mru_gate_blend(rg, ht, img),
+            for key, fn, plain_fn, tensors, ops, make, prev, outs in (
+                    ('K3', kernels.mru_gate_blend,
                      lambda: kernels.mru_gate_blend_plain(rg, ht, img), 4,
-                     K3_OPS_PER_ELEMENT),
-                    ('K4', lambda: kernels.mru_gate_bwd(rg, img, g),
+                     K3_OPS_PER_ELEMENT, (rg, ht, img),
+                     lambda *t: gate_previous(True, *t), (rg,)),
+                    ('K4', kernels.mru_gate_bwd,
                      lambda: kernels.mru_gate_bwd_plain(rg, img, g), 5,
-                     K4_OPS_PER_ELEMENT)):
-                ms, plain = cuda_ms(fn, 100), cuda_ms(plain_fn, 20)
+                     K4_OPS_PER_ELEMENT, (rg, img, g),
+                     lambda *t: gate_previous(False, *t), (rg, img))):
+                match = 'mru_gate_fwd' if key == 'K3' else 'mru_gate_bwd'
+                ms = cuda_ms(lambda: fn(*make), 100)
+                plain = cuda_ms(plain_fn, 20)
+                warm_us, cold_us = device_us(fn, match, cold_copies(
+                    lambda: tuple(t.clone() for t in make),
+                    tensors * n * item))
+                pw_us, pc_us = device_us(prev, match, cold_copies(
+                    lambda: tuple(t.clone() for t in make)
+                    + tuple(torch.empty_like(t) for t in outs),
+                    tensors * n * item))
                 by_bytes, by_ops = bounds_ms(n, item, tensors, ops)
-                print(f'{key} time {dname} {list(shape)}: {ms:.4f} ms, '
-                      f'bound {max(by_bytes, by_ops):.4f} ms (bytes '
-                      f'{by_bytes:.4f}, operations {by_ops:.4f}), plain '
-                      f'{plain:.4f} ms; no single PyTorch call computes '
-                      f'it [{card}]')
-                for k, v in zip(TIME_KEYS, (ms, plain, by_bytes, by_ops)):
-                    sums[key][k] += v
+                bound = max(by_bytes, by_ops)
+                ratio = ('not measured' if cold_us is None
+                         else f'{cold_us / 1e3 / bound:.2f}x')
+                print(f'{key} time {dname} {list(shape)}, {plan[0]} '
+                      f'{plan[1]}x{plan[2]}: device {_us(warm_us)} warm / '
+                      f'{_us(cold_us)} cold L2 (profile; {ratio} the '
+                      f'bound cold), multi-pass (the earlier design) '
+                      f'{_us(pw_us)} / {_us(pc_us)}; bound {bound:.4f} ms '
+                      f'(bytes {by_bytes:.4f}, operations {by_ops:.4f}); '
+                      f'{ms:.4f} ms (CUDA events), plain {plain:.4f} ms; no '
+                      f'single PyTorch call computes it [{card}]')
+                for k, v in zip(keys, (ms, plain, by_bytes, by_ops,
+                                       _ms(warm_us), _ms(cold_us),
+                                       _ms(pw_us), _ms(pc_us))):
+                    sums[key][k] = _add(sums[key][k], v)
         for key in ('K3', 'K4'):
-            per_step[key][dname] = {k: CLASSIFIER_PASSES * v
-                                    for k, v in sums[key].items()}
+            per_step[key][dname] = {
+                k: None if v is None else CLASSIFIER_PASSES * v
+                for k, v in sums[key].items()}
             print(f'{key} per training step ({K3_PER_STEP} calls) at batch '
                   f'64 {dname}: ' + ', '.join(
-                      f'{k} {v:.4f}' for k, v in per_step[key][dname].items())
+                      f'{k} {_f4(v)}' for k, v in per_step[key][dname].items())
                   + f' [{card}]')
 
     # the Function: K3 forward, K4 backward and dht = g, against autograd
     # of the plain chain
     shape = (64,) + GATE_SHAPES[1]
     ins = [t.requires_grad_(True)
-           for t in gate_inputs(shape, torch.float32)[:3]]
-    g = torch.randn(shape, device=dev, generator=gen)
+           for t in gate_checks.gate_inputs(dev, shape, torch.float32)[:3]]
+    g = torch.randn(shape, device=dev)
     before = dict(kernels.LAUNCHES)
     got = torch.autograd.grad(kernels.mru_gate(*ins), ins, g)
     torch.cuda.synchronize()
@@ -785,6 +884,46 @@ def gate_phase(card: str):
               f'{err:.3g} (limit atol 1e-4 rtol 1e-4)')
         check(ok, f'the gate Function {name} differs from autograd')
     return max_err, per_step
+
+
+def gate_variants_phase(card: str):
+    """K3 and K4 in every variant against their plain versions, within TOL
+    and K2_TOL, by `gate_checks.check_gate`: the plane sizes of
+    `gate_checks.GATE_PLANES`, 37 planes (plane 0 flat, plane 1 tied at
+    both extrema), float32 and bfloat16; and contiguous inputs at a
+    storage offset of one element (off 16 bytes), which must take the
+    multi-pass kernels. Returns the largest differences."""
+    import torch
+
+    from edgegan_torch.ops import gate_checks, in_checks, kernels
+    dev = torch.device('cuda')
+    max_err = {'K3': 0.0, 'K4': 0.0}
+    seen = set()
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split('.')[-1]
+        for hw in gate_checks.GATE_PLANES:
+            ins = gate_checks.gate_inputs(dev, (1, 37) + hw, dtype, seed=4)
+            cases = [(ins, f'{dname} [1, 37, {hw[0]}, {hw[1]}]')]
+            if hw == (8, 8):
+                cases.append((tuple(in_checks.shifted(t) for t in ins),
+                              f'{dname} [1, 37, 8, 8] at a storage offset '
+                              f'of 1'))
+            for tensors, label in cases:
+                addr = 0
+                for t in tensors:
+                    addr |= t.data_ptr()
+                want = kernels.gate_plan(hw[0] * hw[1], dtype, addr)[0]
+                seen.add(want)
+                e3, e4 = gate_checks.check_gate(
+                    *tensors, TOL[dname], K2_TOL[dname], want, label=label)
+                max_err['K3'] = max(max_err['K3'], e3)
+                max_err['K4'] = max(max_err['K4'], e4)
+                print(f'{label} ({want}): K3 and K4 within the limits, two '
+                      f'runs bitwise equal [{card}]')
+    check(seen == set(kernels.GATE_VARIANTS), f'variants reached: {seen}')
+    print(f'K3/K4 variants: max abs diff K3 {max_err["K3"]:.3g}, K4 '
+          f'{max_err["K4"]:.3g} [{card}]')
+    return max_err
 
 
 def _post(port, path, body):
@@ -1011,11 +1150,18 @@ def train_phase(card: str, tmp: str):
                 'prelu_bwd': on * K5_PER_STEP * steps,
                 'mru_gate_blend': on * K3_PER_STEP * steps,
                 'mru_gate_bwd': on * K4_PER_STEP * steps}
-        # every K1 and K2 call of the default configuration in a lane group
+        # every K1 and K2 call of the default configuration in a lane group;
+        # K3's and K4's where gate_plan sends each gate
         for name in ('instance_norm_act', 'instance_norm_act_bwd'):
             for variant in kernels.IN_VARIANTS:
                 want[f'{name}.{variant}'] = (want[name] if variant ==
                                              'lane_group' else 0)
+        split = gate_split(torch.bfloat16 if 'bfloat16' in flags
+                           else torch.float32)
+        for name in ('mru_gate_blend', 'mru_gate_bwd'):
+            for variant, calls in split.items():
+                want[f'{name}.{variant}'] = (on * CLASSIFIER_PASSES * calls
+                                             * steps)
         check(counts == want, f'{label}: launches {counts} for {steps} '
               f'steps, expected {want}')
         params, _ = bridge.export_jax_params(state.nets)
@@ -1217,13 +1363,24 @@ def step_time_phase(card: str):
                     n=PROFILED_STEPS, unit='step')
                 launched = {k: v / PROFILED_STEPS
                             for k, v in kernels.LAUNCHES.items()}
-            # K1 and K2: every call of the profiled steps in a lane group
+            # K1 and K2: every call of the profiled steps in a lane group;
+            # K3 and K4: 12 a step with the switches on, split across the
+            # variants as gate_plan sends the four gates
             for name, want in (('instance_norm_act', K1_PER_STEP),
                                ('instance_norm_act_bwd', K2_PER_STEP)):
                 check(launched[name] == launched[f'{name}.lane_group']
                       == want, f'{label}: {name} launched {launched[name]:g}'
                       f' times per step, {launched[f"{name}.lane_group"]:g}'
                       f' in lane groups (expected {want}, all)')
+            split = {v: int(switches) * CLASSIFIER_PASSES * n
+                     for v, n in gate_split(getattr(torch, dtype)).items()}
+            for name in ('mru_gate_blend', 'mru_gate_bwd'):
+                got = {v: launched[f'{name}.{v}'] for v in split}
+                check(launched[name] == sum(split.values()) and got == split,
+                      f'{label}: {name} launched {launched[name]:g} times per '
+                      f'step, by variant {got} (expected {split})')
+                print(f'  {name}: {launched[name]:g} launches per step, by '
+                      f'variant {got} ({label}) [{card}]')
             per_step = {}
             # (profile name, its kernels' names, LAUNCHES key, kernels a
             # launch)
@@ -1429,6 +1586,27 @@ def in_extras(kname, sums, previous, results):
         'variants_max_abs_err': results['K1/K2 variants'][kname]}
 
 
+def gate_extras(kname, steps, results):
+    """K3's or K4's extra JSON fields: device time per training step from
+    the per-call profile (the four gate shapes x 3 classifier passes),
+    warm and cold L2, per dtype, the same for the multi-pass kernel (the
+    earlier design) on the same inputs, its registers per thread per
+    variant, and its largest difference from the plain version across the
+    variants' plane sizes."""
+    return {
+        'device_ms': {d: {'warm': v['device_ms'], 'cold': v['cold_ms']}
+                      for d, v in steps.items()},
+        'previous_device_ms': {
+            'design': 'multi-pass, one block per plane (variant 0), timed '
+                      'in this run on the same inputs; per training step',
+            **{d: {'warm': v['previous_ms'], 'cold': v['previous_cold_ms']}
+               for d, v in steps.items()}},
+        'registers_per_thread': {
+            k: v[0] for k, v in results['K3/K4 registers'].items()
+            if k.startswith(kname)},
+        'variants_max_abs_err': results['K3/K4 variants'][kname]}
+
+
 def _step_times(sums):
     return {'ms': sums['ms'], 'plain_ms': sums['plain_ms'],
             'bound_ms': max(sums['bytes_ms'], sums['ops_ms'])}
@@ -1469,7 +1647,9 @@ def main() -> int:
         phase('K2', k2_phase, card)
         phase('K1/K2 variants', in_variants_phase, card)
         phase('K5', k5_phase, card)
+        phase('K3/K4 registers', gate_registers, card)
         phase('K3/K4', gate_phase, card)
+        phase('K3/K4 variants', gate_variants_phase, card)
         phase('serve', serving_phase, card)
         phase('train', train_phase, card, tmp)
         phase('card_vs_cpu', card_vs_cpu_phase, card)
@@ -1558,7 +1738,8 @@ def main() -> int:
             float32=_step_times(gate_steps['K3']['float32']),
             train_step_device_ms={
                 d: prof[(d, True)]['mru_gate_fwd']
-                for d in ('float32', 'bfloat16')}),
+                for d in ('float32', 'bfloat16')},
+            **gate_extras('K3', gate_steps['K3'], results)),
         _kernel_entry(
             'mru_gate_bwd', 'edgegan_torch/csrc/mru_gate.cu',
             'edgegan_tpu/ops/pallas_kernels.py:388',
@@ -1570,7 +1751,8 @@ def main() -> int:
             float32=_step_times(gate_steps['K4']['float32']),
             train_step_device_ms={
                 d: prof[(d, True)]['mru_gate_bwd']
-                for d in ('float32', 'bfloat16')}),
+                for d in ('float32', 'bfloat16')},
+            **gate_extras('K4', gate_steps['K4'], results)),
     ], 'train_step_ms': {f'{d}, switches {"on" if on else "off"}': t[0]
                          for (d, on), t in times.items()},
         'host_us_per_call': results['host_cost']}))

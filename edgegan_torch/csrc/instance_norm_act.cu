@@ -55,12 +55,17 @@
 
 namespace {
 
+using edgegan::addr_of;
 using edgegan::block_sum;
+using edgegan::group_sums;
+using edgegan::kThreads;
+using edgegan::load_plane;
+using edgegan::mask;
 using edgegan::Pack;
+using edgegan::Slot;
 using edgegan::store;
 using edgegan::to_f32;
-
-constexpr int kThreads = 256;
+using edgegan::unpack;
 constexpr float kEps = 1e-5f;
 constexpr int kMultiPass = 0, kLaneGroup = 1;
 
@@ -159,59 +164,6 @@ instance_norm_act_bwd_multipass(const T* __restrict__ x,
 // Variant 1: the plane in registers, a lane group per plane
 // ---------------------------------------------------------------------------
 
-// Sums `v` over the kG threads (kG <= 32) that own one plane, by shuffles
-// within the group; every one of them gets the totals, bitwise the same (a
-// butterfly adds the same two partials at each step, in either order).
-template <int kG, int kK>
-__device__ __forceinline__ void group_sums(float (&v)[kK]) {
-#pragma unroll
-  for (int off = kG / 2; off > 0; off >>= 1) {
-#pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      v[k] += __shfl_xor_sync(0xffffffffu, v[k], off, kG);
-    }
-  }
-}
-
-// Where a thread's share of a plane lies: the plane's offset, the thread's
-// place in its group, and whether the plane exists (the last block of the
-// grid may hold fewer planes than it has room for).
-template <int kG>
-struct Slot {
-  int64_t base;
-  int lane;
-  bool valid;
-
-  __device__ __forceinline__ Slot(int64_t planes, int64_t hw) {
-    const int64_t plane =
-        static_cast<int64_t>(blockIdx.x) * (kThreads / kG) + threadIdx.x / kG;
-    lane = threadIdx.x % kG;
-    valid = plane < planes;
-    base = valid ? plane * hw : 0;
-  }
-};
-
-// Which of this thread's kV vectors lie in its plane of nvec vectors.
-template <int kG, int kV>
-__device__ __forceinline__ void mask(const Slot<kG>& at, int nvec,
-                                     bool (&in)[kV]) {
-#pragma unroll
-  for (int v = 0; v < kV; ++v) in[v] = at.valid && v * kG + at.lane < nvec;
-}
-
-// Loads this thread's kV vectors of the plane at p, all issued before any
-// is used; vectors outside the plane are left unread.
-template <typename T, int kG, int kV>
-__device__ __forceinline__ void load_plane(const T* p, const Slot<kG>& at,
-                                           const bool (&in)[kV],
-                                           Pack<T> (&r)[kV]) {
-  const Pack<T>* vp = reinterpret_cast<const Pack<T>*>(p + at.base);
-#pragma unroll
-  for (int v = 0; v < kV; ++v) {
-    if (in[v]) r[v] = vp[v * kG + at.lane];
-  }
-}
-
 // The plane's statistics from this thread's share `c` (x in float32, 0
 // outside the plane), in place: c becomes x - mean (0 outside the plane).
 // Returns var.
@@ -238,17 +190,6 @@ __device__ __forceinline__ float centre(float (&c)[kV][kN],
   }
   group_sums<kG>(ss);
   return ss[0] / n;
-}
-
-template <typename T, int kV, int kN>
-__device__ __forceinline__ void unpack(const Pack<T> (&r)[kV],
-                                       const bool (&in)[kV],
-                                       float (&f)[kV][kN]) {
-#pragma unroll
-  for (int v = 0; v < kV; ++v) {
-#pragma unroll
-    for (int e = 0; e < kN; ++e) f[v][e] = in[v] ? to_f32(r[v].v[e]) : 0.f;
-  }
 }
 
 template <typename T, int kAct, int kG, int kV>
@@ -402,16 +343,11 @@ bool bad_args(int64_t planes, int64_t hw, int dtype, int act) {
          act > 2 || (dtype != 0 && dtype != 1);
 }
 
-// Whether the lane-group variant can hold planes of hw elements at
-// these addresses (all pointers OR-ed together): whole 16-byte vectors,
-// each plane starting on 16 bytes, at most lanes * vectors of them.
+// Whether the variant can hold planes of hw elements at these addresses.
 bool holds(int variant, int lanes, int vectors, int64_t hw, int dtype,
            uintptr_t addr) {
-  if (variant == kMultiPass) return true;
-  const int per_vector = dtype == 0 ? Pack<float>::kN
-                                    : Pack<__nv_bfloat16>::kN;
-  return addr % 16 == 0 && hw % per_vector == 0 &&
-         hw / per_vector <= static_cast<int64_t>(lanes) * vectors;
+  return variant == kMultiPass ||
+         edgegan::resident_holds(lanes, vectors, hw, dtype, addr);
 }
 
 // Blocks of kThreads for `planes` planes: one per plane (multi-pass), or
@@ -420,8 +356,6 @@ unsigned grid_for(int variant, int lanes, int64_t planes) {
   const int64_t per_block = variant == kLaneGroup ? kThreads / lanes : 1;
   return static_cast<unsigned>((planes + per_block - 1) / per_block);
 }
-
-uintptr_t addr_of(const void* p) { return reinterpret_cast<uintptr_t>(p); }
 
 template <typename T>
 int launch_fwd(const void* x, void* y, int64_t planes, int64_t hw, int act,

@@ -112,13 +112,20 @@ def library() -> ctypes.CDLL:
             prelu = lib.edgegan_prelu_bwd
             prelu.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32,
                               ptr]
-            # (rg, ht, img, out, planes, hw, dtype, stream)
+            # (rg, ht, img, out, planes, hw, dtype, variant, lanes,
+            #  vectors, stream)
             gate = lib.edgegan_mru_gate_fwd
-            gate.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, ptr]
-            # (rg, img, g, drg, dimg, planes, hw, dtype, stream)
+            gate.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, i32, i32, i32,
+                             ptr]
+            # (rg, img, g, drg, dimg, planes, hw, dtype, variant, lanes,
+            #  vectors, stream)
             gate_bwd = lib.edgegan_mru_gate_bwd
-            gate_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i32, ptr]
-            for fn in (fwd, bwd, attrs, prelu, gate, gate_bwd):
+            gate_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i32, i32,
+                                 i32, i32, ptr]
+            # (bwd, dtype, variant, lanes, vectors, int[2] out)
+            gate_attrs = lib.edgegan_mru_gate_attrs
+            gate_attrs.argtypes = [i32, i32, i32, i32, i32, ptr]
+            for fn in (fwd, bwd, attrs, prelu, gate, gate_bwd, gate_attrs):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib

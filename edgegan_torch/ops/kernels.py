@@ -35,10 +35,12 @@ tensors' alignment:
     planes, and those that do not split into 16-byte vectors (a plane size
     or a base address that is not a multiple of 16 bytes).
 Their bound is bytes, and one read of each input is what it allows.
-K3 and K4 take one block per plane. K5, K3 and K4 run in the classifier,
-and only when their switches are on (`prelu_enabled`, `gate_enabled`): 42,
-12 and 12 times per training step (three classifier passes, each through
-14 PReLUs and 4 MRU gates).
+K3 and K4 (csrc/mru_gate.cu) hold each plane of the MRU gate the same way
+(`gate_plan`): lane groups for MRU units 2 to 4, and for unit 1's 4096
+elements a 'block' variant, the whole block on one plane. K5, K3 and K4
+run in the classifier, and only when their switches are on
+(`prelu_enabled`, `gate_enabled`): 42, 12 and 12 times per training step
+(three classifier passes, each through 14 PReLUs and 4 MRU gates).
 
 Each kernel pair is one `torch.autograd.Function` with a first-order
 backward, as the JAX package's custom VJPs are: `instance_norm_act` saves
@@ -66,16 +68,22 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # K1's and K2's variants (instance_norm_act.cu) and their numbers there
 IN_VARIANTS = {'multi_pass': 0, 'lane_group': 1}
-IN_THREADS = 256      # threads a block, in both variants
+# K3's and K4's (mru_gate.cu): those and the block-wide group
+GATE_VARIANTS = {**IN_VARIANTS, 'block': 2}
+IN_THREADS = 256      # threads a block, in every variant but K3/K4's
+                      # multi-pass kernel (32 to 256 by the plane's size)
 IN_MAX_VECTORS = 8    # 16-byte vectors a lane-group thread holds, at most
+GATE_BLOCK_VECTORS = 4  # and a thread of K3/K4's block variant
 # Launches per kernel, counted where the kernel is launched and nowhere
-# else; K1 and K2 also per variant ('instance_norm_act.lane_group', ...).
-# Callers reset an entry to 0 to count one run.
+# else, and per variant ('instance_norm_act.lane_group', ...). Callers
+# reset an entry to 0 to count one run.
 LAUNCHES = {'instance_norm_act': 0, 'instance_norm_act_bwd': 0,
             'prelu_bwd': 0, 'mru_gate_blend': 0, 'mru_gate_bwd': 0,
             **{f'{k}.{v}': 0 for k in ('instance_norm_act',
                                        'instance_norm_act_bwd')
-               for v in IN_VARIANTS}}
+               for v in IN_VARIANTS},
+            **{f'{k}.{v}': 0 for k in ('mru_gate_blend', 'mru_gate_bwd')
+               for v in GATE_VARIANTS}}
 # K5's scratch: one float32 partial of dleak per block, and so the cap on
 # its grid (8 blocks on each of the H100's 132 SMs)
 PRELU_PARTIALS = 1056
@@ -212,40 +220,63 @@ def _pow2_at_least(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
 
 
-def instance_norm_plan(hw: int, dtype: torch.dtype, data_ptr: int):
-    """(variant, lanes, vectors) of K1/K2 for planes of `hw` elements of
-    `dtype` at `data_ptr` (the tensors' addresses OR-ed together, so that
-    one misaligned pointer shows): `lanes` threads own one plane, each
-    holding `vectors` 16-byte vectors of it.
+def plane_plan(hw: int, dtype: torch.dtype, data_ptr: int,
+               block_vectors: int = 0):
+    """(variant, lanes, vectors) of a per-plane kernel (K1-K4) for planes
+    of `hw` elements of `dtype` at `data_ptr` (the tensors' addresses
+    OR-ed together, so that one misaligned pointer shows): `lanes` threads
+    own one plane, each holding `vectors` 16-byte vectors of it.
 
     - 'lane_group' while a plane fits 32 threads x 8 vectors (1024 float32
       or 2048 bfloat16 elements): one vector a thread and as few lanes as
       hold the plane (at least 4), or 32 lanes and as few vectors.
+    - 'block' (lanes 256) beyond that while the plane fits 256 threads x
+      `block_vectors` vectors, as few vectors as hold it; 0 (K1/K2, which
+      build no such variant) skips it.
     - 'multi_pass' (lanes 256, vectors 0) beyond that, and wherever the
       plane does not split into whole 16-byte vectors from a 16-byte
       boundary: `hw` not a multiple of 16 / itemsize, or `data_ptr` not a
       multiple of 16."""
     per_vector = 16 // dtype.itemsize
     nvec, ragged = divmod(hw, per_vector)
-    if ragged or data_ptr % 16 or nvec > 32 * IN_MAX_VECTORS:
+    if ragged or data_ptr % 16:
         return 'multi_pass', IN_THREADS, 0
     if nvec <= 32:
         return 'lane_group', max(4, _pow2_at_least(nvec)), 1
-    return 'lane_group', 32, _pow2_at_least(-(-nvec // 32))
+    if nvec <= 32 * IN_MAX_VECTORS:
+        return 'lane_group', 32, _pow2_at_least(-(-nvec // 32))
+    if nvec <= IN_THREADS * block_vectors:
+        return 'block', IN_THREADS, _pow2_at_least(-(-nvec // IN_THREADS))
+    return 'multi_pass', IN_THREADS, 0
 
 
-def _launch_in(name: str, entry, x, *tensors, act: int):
-    """Launches K1 or K2 (`entry`) on contiguous NCHW `x` and the other
-    tensors of its shape (outputs last), in the variant that
-    `instance_norm_plan` picks; raises if the library refuses it."""
+def instance_norm_plan(hw: int, dtype: torch.dtype, data_ptr: int):
+    """K1's and K2's (variant, lanes, vectors): `plane_plan` without the
+    block variant."""
+    return plane_plan(hw, dtype, data_ptr)
+
+
+def gate_plan(hw: int, dtype: torch.dtype, data_ptr: int):
+    """K3's and K4's (variant, lanes, vectors): `plane_plan` with blocks
+    of up to GATE_BLOCK_VECTORS vectors a thread (4096 float32 or 8192
+    bfloat16 elements, MRU unit 1's planes)."""
+    return plane_plan(hw, dtype, data_ptr, GATE_BLOCK_VECTORS)
+
+
+def _launch_planes(name: str, entry, plan, x, *tensors, act=()):
+    """Launches a per-plane kernel (`entry`: K1, K2, K3 or K4) on
+    contiguous NCHW `x` and the other tensors of its shape (outputs last),
+    in the variant that `plan` picks, `act` (K1/K2's activation) after the
+    dtype; raises if the library refuses it. Both sources number the
+    variants they share alike, so GATE_VARIANTS numbers K1/K2's too."""
     b, c, h, w = x.shape
     addr = 0
     for t in (x,) + tensors:
         addr |= t.data_ptr()
-    variant, lanes, vectors = instance_norm_plan(h * w, x.dtype, addr)
+    variant, lanes, vectors = plan(h * w, x.dtype, addr)
     with torch.cuda.device(x.device):
         err = entry(x.data_ptr(), *(t.data_ptr() for t in tensors), b * c,
-                    h * w, _DTYPES[x.dtype], act, IN_VARIANTS[variant],
+                    h * w, _DTYPES[x.dtype], *act, GATE_VARIANTS[variant],
                     lanes, vectors, _stream(x))
     _raise_on(err, name)
     LAUNCHES[name] += 1
@@ -262,8 +293,9 @@ def _forward(x, activation: Optional[str]):
     if x.numel() == 0:
         return y
     from ._build import library
-    _launch_in('instance_norm_act', library().edgegan_instance_norm_act_fwd,
-               x, y, act=act)
+    _launch_planes('instance_norm_act',
+                   library().edgegan_instance_norm_act_fwd,
+                   instance_norm_plan, x, y, act=(act,))
     return y
 
 
@@ -281,8 +313,9 @@ def instance_norm_act_bwd(x, g, activation: Optional[str] = None):
     if x.numel() == 0:
         return dx
     from ._build import library
-    _launch_in('instance_norm_act_bwd',
-               library().edgegan_instance_norm_act_bwd, x, g, dx, act=act)
+    _launch_planes('instance_norm_act_bwd',
+                   library().edgegan_instance_norm_act_bwd,
+                   instance_norm_plan, x, g, dx, act=(act,))
     return dx
 
 
@@ -449,18 +482,12 @@ def mru_gate_blend(rg, ht, img):
     if all(t.device.type == 'cpu' for t in (rg, ht, img)):
         return mru_gate_blend_plain(rg, ht, img)
     _check_like('mru_gate_blend', rg=rg, ht=ht, img=img)
-    b, c, h, w = rg.shape
     out = torch.empty_like(rg)
     if rg.numel() == 0:
         return out
     from ._build import library
-    lib = library()
-    with torch.cuda.device(rg.device):
-        err = lib.edgegan_mru_gate_fwd(
-            rg.data_ptr(), ht.data_ptr(), img.data_ptr(), out.data_ptr(),
-            b * c, h * w, _DTYPES[rg.dtype], _stream(rg))
-    _raise_on(err, 'mru_gate_blend')
-    LAUNCHES['mru_gate_blend'] += 1
+    _launch_planes('mru_gate_blend', library().edgegan_mru_gate_fwd,
+                   gate_plan, rg, ht, img, out)
     return out
 
 
@@ -473,18 +500,12 @@ def mru_gate_bwd(rg, img, g):
     if all(t.device.type == 'cpu' for t in (rg, img, g)):
         return mru_gate_bwd_plain(rg, img, g)
     _check_like('mru_gate_bwd', rg=rg, img=img, g=g)
-    b, c, h, w = rg.shape
     drg, dimg = torch.empty_like(rg), torch.empty_like(img)
     if rg.numel() == 0:
         return drg, dimg
     from ._build import library
-    lib = library()
-    with torch.cuda.device(rg.device):
-        err = lib.edgegan_mru_gate_bwd(
-            rg.data_ptr(), img.data_ptr(), g.data_ptr(), drg.data_ptr(),
-            dimg.data_ptr(), b * c, h * w, _DTYPES[rg.dtype], _stream(rg))
-    _raise_on(err, 'mru_gate_bwd')
-    LAUNCHES['mru_gate_bwd'] += 1
+    _launch_planes('mru_gate_bwd', library().edgegan_mru_gate_bwd,
+                   gate_plan, rg, img, g, drg, dimg)
     return drg, dimg
 
 

@@ -9,15 +9,22 @@ with `python -m pytest --noconftest -m cuda
 tests/test_torch_classifier_kernels.py`. JAX is imported inside the tests
 that compare with it, so that these run where it is not installed.
 """
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
 
 from edgegan_torch import losses as L
-from edgegan_torch.ops import kernels
+from edgegan_torch.ops import gate_checks, in_checks, kernels
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LEAKS = [0.2, 1.5]
 SWITCHES = ('EDGEGAN_PALLAS_PRELU', 'EDGEGAN_PALLAS_GATE')
+DTYPES = [torch.float32, torch.bfloat16]
+# The classifier's four MRU gates, (C, H, W): units 1 to 4
+GATE_SHAPES = [(8, 64, 64), (128, 32, 32), (256, 16, 16), (512, 8, 8)]
 
 
 def _nchw_t(a):
@@ -36,13 +43,16 @@ def _prelu_x(shape=(2, 8, 8, 16), seed=0):
 
 
 def _gate_inputs(shape=(2, 4, 6, 8), seed=4):
-    """NHWC (rg, ht, img, g): one flat plane of rg, and a tie at the
-    minimum of another (test_pallas.py:68-79)."""
+    """NHWC (rg, ht, img, g): one flat plane of rg, and, where a plane has
+    4 elements or more, two ties in another: at its minimum and at its
+    maximum (test_pallas.py:68-79)."""
     rng = np.random.RandomState(seed)
     rg, ht, img, g = (rng.randn(*shape).astype(np.float32) for _ in range(4))
     rg[0, :, :, 0] = 1.5
-    lo = rg[1, :, :, 1].min()
-    rg[1, 0, 0, 1] = rg[1, 1, 1, 1] = lo
+    if shape[1] * shape[2] >= 4:
+        lo, hi = rg[1, :, :, 1].min(), rg[1, :, :, 1].max()
+        rg[1, 0, 0, 1] = rg[1, -1, -1, 1] = lo
+        rg[1, 0, -1, 1] = rg[1, -1, 0, 1] = hi
     return rg, ht, img, g
 
 
@@ -83,16 +93,20 @@ def test_prelu_bwd_matches_pallas_vjp(leak):
     assert torch.equal(fdx, dx) and torch.equal(fdleak, dleak)
 
 
-def test_gate_matches_pallas_vjp():
+@pytest.mark.parametrize('hw', [(6, 8), (1, 1), (3, 3), (7, 9), (8, 8),
+                                (32, 32), (64, 64)],
+                         ids=lambda hw: f'{hw[0]}x{hw[1]}')
+def test_gate_matches_pallas_vjp(hw):
     """`mru_gate_blend_plain` and `mru_gate_bwd_plain`, and the Function
     on the CPU, against `pallas_kernels.mru_gate_blend` in interpret mode
     and `jax.vjp` of it: forward within 1e-6, the three gradients within
-    1e-5 (test_pallas.py:82,91), with a flat plane and a tie at a
-    minimum. The Function returns dht = g."""
+    1e-5 (test_pallas.py:82,91), with a flat plane and ties at both
+    extrema of another, at planes of 48 elements and of 1, 9, 63 and
+    64-4096 (MRU units 4 to 1). The Function returns dht = g."""
     jax = pytest.importorskip('jax')
     jnp = jax.numpy
     from edgegan_tpu.ops import pallas_kernels as pk
-    rg, ht, img, g = _gate_inputs()
+    rg, ht, img, g = _gate_inputs((2,) + hw + (8 if hw == (6, 8) else 4,))
     out, vjp = jax.vjp(lambda a, b, c: pk.mru_gate_blend(a, b, c, True),
                        *(jnp.asarray(t) for t in (rg, ht, img)))
     jdrg, jdht, jdimg = vjp(jnp.asarray(g))
@@ -175,6 +189,73 @@ def test_cpu_wrappers_are_plain_and_uncounted():
     with pytest.raises(ValueError, match='device'):
         kernels.mru_gate_bwd(m, m, m)
     assert kernels.LAUNCHES == before
+
+
+def _gate_built():
+    """The (variant, lanes, vectors) that csrc/mru_gate.cu builds kernels
+    for: its EDGEGAN_GATE_SHAPES list and the multi-pass kernel."""
+    with open(os.path.join(ROOT, 'edgegan_torch', 'csrc',
+                           'mru_gate.cu')) as f:
+        src = f.read()
+    shapes = src[src.index('#define EDGEGAN_GATE_SHAPES'):]
+    shapes = shapes[:shapes.index('\n\n')]
+    names = {'kLaneGroup': 'lane_group', 'kBlock': 'block'}
+    built = {(names[v], int(g), int(n)) for v, g, n in
+             re.findall(r'X\((\w+), (\d+), (\d+)\)', shapes)}
+    assert len(built) == 9, built
+    return built | {('multi_pass', 256, 0)}
+
+
+def test_gate_plan_is_built_holds_the_plane_and_never_vectorises_ragged():
+    """For every plane size up to twice a block's reach and every
+    misalignment of 2 to 14 bytes: the gate plan names a kernel the source
+    builds; a register-resident variant is picked only for whole 16-byte
+    vectors from a 16-byte boundary, a lane group up to 32 x 8 vectors and
+    a block beyond that up to 256 x 4, each holding the plane in at most
+    twice the room it needs (or in the smallest group); every other plane
+    takes the multi-pass kernel."""
+    built = _gate_built()
+    reached = set()
+    for dtype in DTYPES:
+        per_vector = 16 // dtype.itemsize
+        for hw in range(1, 2 * 256 * 4 * per_vector + 2):
+            nvec, ragged = divmod(hw, per_vector)
+            for offset in (0, 2, 4, 6, 8, 10, 12, 14, 16, 48):
+                plan = kernels.gate_plan(hw, dtype, 4096 + offset)
+                assert plan in built, (hw, dtype, offset, plan)
+                reached.add(plan)
+                variant, lanes, vectors = plan
+                if ragged or offset % 16:
+                    assert variant == 'multi_pass', (hw, dtype, offset)
+                    continue
+                room = lanes * vectors
+                if nvec <= 32 * 8:
+                    assert variant == 'lane_group', (hw, dtype, plan)
+                elif nvec <= 256 * 4:
+                    assert variant == 'block', (hw, dtype, plan)
+                else:
+                    assert variant == 'multi_pass', (hw, dtype, plan)
+                    continue
+                assert nvec <= room, (hw, dtype, plan)
+                assert 2 * nvec > room or room == 4, (hw, dtype, plan)
+    assert reached == built
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_gate_plan_puts_mru_planes_in_registers(dtype):
+    """At every batch, MRU units 2 to 4 take lane groups and unit 1's
+    4096-element planes the block variant; K1/K2's plan, which builds no
+    block variant, sends those to the multi-pass kernel."""
+    want = {torch.float32: [('block', 256, 4), ('lane_group', 32, 8),
+                            ('lane_group', 32, 2), ('lane_group', 16, 1)],
+            torch.bfloat16: [('block', 256, 2), ('lane_group', 32, 4),
+                             ('lane_group', 32, 1), ('lane_group', 8, 1)]}
+    for batch in (4, 64):
+        for (c, h, w), plan in zip(GATE_SHAPES, want[dtype]):
+            x = torch.empty(batch, c, h, w, dtype=dtype)
+            assert kernels.gate_plan(h * w, dtype, x.data_ptr()) == plan
+    assert kernels.instance_norm_plan(4096, dtype, 0) == ('multi_pass',
+                                                          256, 0)
 
 
 @pytest.fixture(scope='module')
@@ -327,6 +408,104 @@ def test_gate_kernels_match_plain_on_card(cuda, dtype, shape):
         rg, ht, img).float(), **tol)
     for got, ref in zip((drg, dimg), kernels.mru_gate_bwd_plain(rg, img, g)):
         torch.testing.assert_close(got.float(), ref.float(), **tol)
+
+
+GATE_TOL = {torch.float32: dict(atol=2e-5, rtol=0.0),
+            torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+# K4 sums over the plane; bfloat16 rounds drg and dimg to 8 bits
+GATE_BWD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+                torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+# where the gate plan sends each plane size of gate_checks.GATE_PLANES
+GATE_VARIANT = {(1, 1): 'multi_pass', (3, 3): 'multi_pass',
+                (7, 9): 'multi_pass', (8, 8): 'lane_group',
+                (16, 16): 'lane_group', (32, 32): 'lane_group',
+                (24, 64): 'block', (64, 64): 'block',
+                (128, 128): 'multi_pass'}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('hw', gate_checks.GATE_PLANES,
+                         ids=lambda hw: f'{hw[0]}x{hw[1]}')
+def test_gate_variants_match_plain_on_card(cuda, dtype, hw):
+    """Each variant, where the gate plan sends this plane size (ragged,
+    MRU units 4 to 1, between and beyond): K3 and K4 against their plain
+    versions on 37 planes, one flat and one tied at both extrema, with
+    the per-variant launch counts and two runs bitwise equal."""
+    ins = gate_checks.gate_inputs(cuda, (1, 37) + hw, dtype)
+    addr = 0
+    for t in ins:
+        addr |= t.data_ptr()
+    variant = kernels.gate_plan(hw[0] * hw[1], dtype, addr)[0]
+    want = GATE_VARIANT[hw]
+    if hw == (24, 64) and dtype == torch.bfloat16:
+        want = 'lane_group'   # 192 vectors: 32 lanes x 8
+    assert variant == want
+    gate_checks.check_gate(*ins, GATE_TOL[dtype], GATE_BWD_TOL[dtype],
+                           variant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_gate_misaligned_input_takes_multi_pass_on_card(cuda, dtype):
+    """Contiguous views at a storage offset of one element start off a
+    16-byte boundary: K3 and K4 take the multi-pass kernel and give what
+    the lane-group kernels give on the same values, within the limits. A
+    misaligned g alone sends K4 there too."""
+    ins = gate_checks.gate_inputs(cuda, (1, 37, 8, 8), dtype)
+    shifted = [in_checks.shifted(t) for t in ins]
+    tols = GATE_TOL[dtype], GATE_BWD_TOL[dtype]
+    gate_checks.check_gate(*shifted, *tols, 'multi_pass')
+    gate_checks.check_gate(*ins[:3], shifted[3], *tols, 'lane_group',
+                           bwd_variant='multi_pass')
+    torch.testing.assert_close(
+        kernels.mru_gate_blend(*shifted[:3]).float(),
+        kernels.mru_gate_blend(*ins[:3]).float(), **tols[0])
+    for a, b in zip(kernels.mru_gate_bwd(shifted[0], shifted[2], shifted[3]),
+                    kernels.mru_gate_bwd(ins[0], ins[2], ins[3])):
+        torch.testing.assert_close(a.float(), b.float(), **tols[1])
+
+
+@pytest.mark.cuda
+def test_gate_library_refuses_impossible_variant_on_card(cuda):
+    """The C entry points launch a variant only where it is built and
+    holds the plane: 16 lanes x 1 vector hold a 64-element float32 plane,
+    and so does a block of 2 vectors; 4 x 1 do not, 12 lanes and a block
+    of 128 lanes are not built, a base off 16 bytes is refused
+    (cudaErrorInvalidValue, 1), as are multi-pass with vectors and a
+    variant 3, which is not built."""
+    from edgegan_torch.ops._build import library
+    lib = library()
+    rg, ht, img, g = gate_checks.gate_inputs(cuda, (1, 4, 8, 8),
+                                             torch.float32)
+    out = torch.empty_like(rg)
+    s = torch.cuda.current_stream().cuda_stream
+
+    def fwd(rg_ptr, variant, lanes, vectors):
+        out.zero_()
+        return lib.edgegan_mru_gate_fwd(rg_ptr, ht.data_ptr(),
+                                        img.data_ptr(), out.data_ptr(), 4,
+                                        64, 0, variant, lanes, vectors, s)
+
+    ref = kernels.mru_gate_blend_plain(rg, ht, img)
+    for variant, lanes, vectors in ((1, 16, 1), (2, 256, 2)):
+        assert fwd(rg.data_ptr(), variant, lanes, vectors) == 0
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, **GATE_TOL[torch.float32])
+    assert fwd(rg.data_ptr(), 1, 4, 1) == 1
+    assert fwd(rg.data_ptr(), 1, 12, 1) == 1
+    assert fwd(rg.data_ptr(), 2, 128, 2) == 1
+    assert fwd(rg.data_ptr() + 4, 1, 16, 1) == 1
+    assert fwd(rg.data_ptr(), 0, 256, 1) == 1
+    assert fwd(rg.data_ptr(), 3, 256, 2) == 1
+    # a lane group holds a plane smaller than its room, too
+    drg, dimg = torch.empty_like(rg), torch.empty_like(rg)
+    assert lib.edgegan_mru_gate_bwd(
+        rg.data_ptr(), img.data_ptr(), g.data_ptr(), drg.data_ptr(),
+        dimg.data_ptr(), 4, 64, 0, 1, 32, 8, s) == 0
+    torch.cuda.synchronize()
+    for got, want in zip((drg, dimg), kernels.mru_gate_bwd_plain(rg, img, g)):
+        torch.testing.assert_close(got, want, **GATE_BWD_TOL[torch.float32])
 
 
 @pytest.mark.cuda
