@@ -66,18 +66,36 @@ the package is missing, and on any failed check.
    42, K3 12, K4 12 times per step with the switches on (K3/K4 split
    across the variants as `gate_plan` sends the four gates), 0 with them
    off (the default).
-8. One training step at full width and batch 4 on the card against the
+8. Lifecycle phase, this slice's path at full width through the entry
+   points, both classifier switches on: `cli.train` with
+   `--update_mode fast --reference_metrics True --update_sn True`, 3
+   steps in float32 (the cadence save at counter 2 goes through
+   `checkpoint.save_async` and is in place when the run returns), then 2
+   steps in bfloat16 resumed from that checkpoint (`resumed_at` 2); every
+   metric finite, the classifier's `u` in the checkpoint moved from its
+   initial value and float32, and per step K1 24, K2 6, K5 28, K3 12, K4
+   8 launches. Then `cli.test` from the checkpoint over a test tree of 14
+   class directories and two that must be skipped (class id 14, 'misc'),
+   at batch 1 and at --test_batch_size 16 (a padded tail): the files
+   written, their widths (W + 2 * W/2), no padded row, K1 6 launches per
+   forward, and batch 1's first PNG against the port's CPU forward from
+   the same checkpoint and noise (within one byte). Then `serve.main`
+   with no --weights, from the checkpoint directory, answering a raw
+   batch and a PNG (K1 6 launches per batch).
+9. One training step at full width and batch 4 on the card against the
    same step on the CPU, from the same weights and random draws; and a
    second card step with both switches on, against the same CPU step.
-9. Time per training step at batch 64 (CUDA events and host clock, peak
+10. Time per training step at batch 64 (CUDA events and host clock, peak
    memory) in float32 and bfloat16, switches off and on (in turns: off,
-   on, on, off); device time per optimizer group and the `torch.profiler`
-   split for each setting, with each kernel's device time per step (not
-   measured where the profile recorded fewer of its kernels than were
-   launched); K1 and K2 must launch 21 and 12 times per profiled step,
-   all in lane groups, and K3 and K4 12 each with the switches on, split
-   across the variants as planned (`LAUNCHES`).
-10. Prints one JSON line describing every kernel, then
+   on, on, off), for the faithful step and again for the fast step;
+   device time per optimizer group and the `torch.profiler` split for
+   each setting, with each kernel's device time per step (not measured
+   where the profile recorded fewer of its kernels than were launched);
+   the launches per profiled step, by variant, must be as planned
+   (`expected_launches`: faithful K1 21, K2 12, K5 42, K3 12, K4 12;
+   fast K1 12, K2 6, K5 28, K3 8, K4 8; K5, K3 and K4 with the switches
+   on only).
+11. Prints one JSON line describing every kernel, then
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 from __future__ import annotations
@@ -87,6 +105,7 @@ import http.client
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -127,6 +146,15 @@ GATE_SHAPES = [(8, 64, 64), (128, 32, 32), (256, 16, 16), (512, 8, 8)]
 CLASSIFIER_PASSES = 3   # per step: group 4 and both generator updates
 K5_PER_STEP = 14 * CLASSIFIER_PASSES
 K3_PER_STEP = K4_PER_STEP = 4 * CLASSIFIER_PASSES
+# per step of each kind: K1 and K2 launches, classifier forwards (K3: 4
+# each) and backwards (K4: 4, K5: 14 each). The fast step runs one
+# generator update and gives the encoder the step-start fake;
+# reference_metrics adds a generator forward and the generators' losses
+# (K1 12, one classifier forward) without a gradient; update_sn runs no
+# forward.
+STEP_KINDS = {'faithful': (K1_PER_STEP, K2_PER_STEP, 3, 3),
+              'fast': (12, 6, 2, 2),
+              'fast, reference_metrics, update_sn': (24, 6, 3, 2)}
 # float32 operations per element: K5 mul, 2 compares, select, fma, mul,
 # mul, add; K3 min, max, sub, div, mul, add; K4 min, max, then sub, div,
 # mul, mul, sub, 2 mul-adds, add, 2 compares, 2 adds, then mul, div,
@@ -715,6 +743,31 @@ def gate_split(dtype):
     return counts
 
 
+def expected_launches(kind: str, dtype, switches: bool, steps: float = 1):
+    """`kernels.LAUNCHES` after `steps` training steps of `kind`
+    (STEP_KINDS) in `dtype`: every K1 and K2 call of the default
+    configuration in a lane group, K3's and K4's in the variants where
+    `gate_plan` sends the four gates, K5 and K3/K4 only with the switches
+    on."""
+    from edgegan_torch.ops import kernels
+    k1, k2, forwards, backwards = STEP_KINDS[kind]
+    on = int(switches)
+    want = {'instance_norm_act': k1 * steps,
+            'instance_norm_act_bwd': k2 * steps,
+            'prelu_bwd': on * 14 * backwards * steps,
+            'mru_gate_blend': on * 4 * forwards * steps,
+            'mru_gate_bwd': on * 4 * backwards * steps}
+    for name in ('instance_norm_act', 'instance_norm_act_bwd'):
+        for variant in kernels.IN_VARIANTS:
+            want[f'{name}.{variant}'] = (want[name] if variant ==
+                                         'lane_group' else 0)
+    for name, passes in (('mru_gate_blend', forwards),
+                         ('mru_gate_bwd', backwards)):
+        for variant, calls in gate_split(dtype).items():
+            want[f'{name}.{variant}'] = on * passes * calls * steps
+    return want
+
+
 def gate_registers(card: str):
     """Registers and local memory (spill) bytes per thread of K3's and K4's
     kernels as built, in every (variant, lanes, vectors) that `gate_plan`
@@ -1079,11 +1132,6 @@ def write_dataset(root: str, n_images: int, n_classes: int, h: int, w: int,
         Image.fromarray(img).save(os.path.join(d, f'{i:04d}.png'))
 
 
-def _read_metrics(path: str):
-    with open(path) as f:
-        return [json.loads(line) for line in f if line.strip()]
-
-
 def train_phase(card: str, tmp: str):
     """The training CLI at full width on cuda: 2 epochs of 2 batches (4
     steps, checkpoints 2 and 5), then 1 epoch resumed at counter 5, both
@@ -1099,6 +1147,8 @@ def train_phase(card: str, tmp: str):
     from edgegan_torch.cli import train as train_cli
     from edgegan_torch.core.config import Config
     from edgegan_torch.ops import kernels
+    from edgegan_torch.utils.metrics_io import (read_metrics,
+                                                read_resume_markers)
 
     config = Config().derive('train')
     root = os.path.join(tmp, 'data')
@@ -1118,7 +1168,6 @@ def train_phase(card: str, tmp: str):
                 '--name', name, '--save_checkpoint_frequency', '3'] + flags
         ckpt_dir = os.path.join(out, name, 'checkpoints')
         log = os.path.join(out, name, 'logs', 'metrics.jsonl')
-        n_lines = len(_read_metrics(log)) if os.path.exists(log) else 0
         # a resumed run starts from checkpoint 5
         run_start = ckpt.read(ckpt_dir, 5)[0]['params'] if first > 2 else start
         for k in kernels.LAUNCHES:
@@ -1130,11 +1179,10 @@ def train_phase(card: str, tmp: str):
         wall = time.perf_counter() - t0
         counts = dict(kernels.LAUNCHES)
         launches[label] = counts
-        lines = _read_metrics(log)[n_lines:]
+        lines = [m for m in read_metrics(log) if m['step'] >= first]
         if first > 2:
-            check(lines and lines[0] == {'resumed_at': 5},
-                  f'no resume at counter 5: {lines[:1]}')
-            lines = lines[1:]
+            check(read_resume_markers(log) == [5],
+                  f'resumes at {read_resume_markers(log)}, expected [5]')
             check(state.step == 6, f'train state step {state.step} after '
                   'the resume')
         check([m['step'] for m in lines] == list(range(first, first + steps)),
@@ -1145,23 +1193,9 @@ def train_phase(card: str, tmp: str):
                                           for v in vals.values()),
                   f'{label}: metrics at step {m["step"]}: {vals}')
         on = int(switches)
-        want = {'instance_norm_act': K1_PER_STEP * steps,
-                'instance_norm_act_bwd': K2_PER_STEP * steps,
-                'prelu_bwd': on * K5_PER_STEP * steps,
-                'mru_gate_blend': on * K3_PER_STEP * steps,
-                'mru_gate_bwd': on * K4_PER_STEP * steps}
-        # every K1 and K2 call of the default configuration in a lane group;
-        # K3's and K4's where gate_plan sends each gate
-        for name in ('instance_norm_act', 'instance_norm_act_bwd'):
-            for variant in kernels.IN_VARIANTS:
-                want[f'{name}.{variant}'] = (want[name] if variant ==
-                                             'lane_group' else 0)
-        split = gate_split(torch.bfloat16 if 'bfloat16' in flags
-                           else torch.float32)
-        for name in ('mru_gate_blend', 'mru_gate_bwd'):
-            for variant, calls in split.items():
-                want[f'{name}.{variant}'] = (on * CLASSIFIER_PASSES * calls
-                                             * steps)
+        want = expected_launches(
+            'faithful', torch.bfloat16 if 'bfloat16' in flags
+            else torch.float32, switches, steps)
         check(counts == want, f'{label}: launches {counts} for {steps} '
               f'steps, expected {want}')
         params, _ = bridge.export_jax_params(state.nets)
@@ -1180,6 +1214,255 @@ def train_phase(card: str, tmp: str):
         if label == runs[0][0]:
             check(ckpt.steps(ckpt_dir) == [2, 5],
                   f'checkpoints {ckpt.steps(ckpt_dir)}, expected [2, 5]')
+    return launches
+
+
+def write_test_tree(root: str, per_class: int, n_classes: int, h: int,
+                    w: int, seed: int = 1):
+    """<root>/ds/test/<class>/*.png: `per_class` random pairs in each of
+    `n_classes` class directories, plus one under the class id
+    `n_classes` and one under 'misc', both of which the test CLI must
+    skip (quirk Q10); every pair holds the values 0 and 255, so that its
+    own range sets the stretch of its saved panel. Returns the relative
+    names ('<class>/<file>') of the files that must be written."""
+    import numpy as np
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    classes = [str(c) for c in range(n_classes) for _ in range(per_class)]
+    valid = []
+    for i, cls in enumerate(classes + [str(n_classes), 'misc']):
+        d = os.path.join(root, 'ds', 'test', cls)
+        os.makedirs(d, exist_ok=True)
+        img = (rng.rand(h, w, 3) * 255).astype(np.uint8)
+        img[0, 0], img[0, 1] = 0, 255
+        Image.fromarray(img).save(os.path.join(d, f'{i:04d}.png'))
+        if i < len(classes):
+            valid.append(os.path.join(cls, f'{i:04d}.png'))
+    return sorted(valid)
+
+
+LIFECYCLE = 'fast, reference_metrics, update_sn'
+
+
+def lifecycle_phase(card: str, tmp: str):
+    """This slice's path at full width on cuda, through the entry points:
+    `cli.train` with the fast step, `reference_metrics` and `update_sn`
+    and both classifier switches, 3 steps in float32 (its cadence save at
+    counter 2 asynchronous) and 2 in bfloat16 resumed from that
+    checkpoint; `cli.test` from the checkpoint at batch 1 and at
+    --test_batch_size 16 (a padded tail); `serve` from the checkpoint
+    directory without --weights, answering requests. Each run's launches
+    are counted from 0 and checked. Returns them by run."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from edgegan_torch import bridge
+    from edgegan_torch import checkpoint as ckpt
+    from edgegan_torch import serve
+    from edgegan_torch.cli import test as test_cli
+    from edgegan_torch.cli import train as train_cli
+    from edgegan_torch.core.config import Config
+    from edgegan_torch.infer import make_test_forward
+    from edgegan_torch.ops import kernels
+    from edgegan_torch.train.networks import Networks
+    from edgegan_torch.utils.metrics_io import (read_metrics,
+                                                read_resume_markers)
+
+    config = Config().derive('train')
+    b, h, w = config.batch_size, config.output_height, config.output_width
+    root = os.path.join(tmp, 'lifecycle')
+    write_dataset(root, 3 * b, config.num_classes, h, w)
+    valid = write_test_tree(root, 2, config.num_classes, h, w)
+    out = os.path.join(root, 'outputs')
+    base = ['--dataroot', root, '--dataset', 'ds', '--outputsroot', out,
+            '--name', 'life']
+    options = ['--update_mode', 'fast', '--reference_metrics', 'True',
+               '--update_sn', 'True', '--save_checkpoint_frequency', '3',
+               '--epoch', '1']
+    ckpt_dir = os.path.join(out, 'life', 'checkpoints')
+    log = os.path.join(out, 'life', 'logs', 'metrics.jsonl')
+    _, aux0 = bridge.random_jax_params(config, config.seed, critics=True)
+    launches = {}
+
+    def counted(label, fn, *args):
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        result = fn(*args)
+        torch.cuda.synchronize()
+        launches[label] = dict(kernels.LAUNCHES)
+        return result, time.perf_counter() - t0
+
+    # train: 3 float32 steps (async cadence save at counter 2), then 2
+    # bfloat16 steps resumed from it (--train_size: 2 batches an epoch)
+    async_saves = []
+    save_async = ckpt.save_async
+
+    def recorded(*args, **kw):
+        async_saves.append(args[1])
+        return save_async(*args, **kw)
+
+    ckpt.save_async = recorded
+    try:
+        for label, flags, dtype, steps in (
+                ('lifecycle train float32', [], torch.float32, 3),
+                ('lifecycle train bfloat16 resumed',
+                 ['--dtype', 'bfloat16', '--train_size', str(2 * b)],
+                 torch.bfloat16, 2)):
+            with classifier_switches(True):
+                state, wall = counted(label, train_cli.main,
+                                      base + options + flags)
+            want = expected_launches(LIFECYCLE, dtype, True, steps)
+            check(launches[label] == want, f'{label}: launches '
+                  f'{launches[label]}, expected {want}')
+            print(f'{label}: {steps} steps of batch {b} ({LIFECYCLE}, '
+                  f'switches on) in {wall:.3f} s with start-up (host clock); '
+                  f'launches per step K1 {want["instance_norm_act"] / steps:g}'
+                  f', K2 {want["instance_norm_act_bwd"] / steps:g}, K5 '
+                  f'{want["prelu_bwd"] / steps:g}, K3 '
+                  f'{want["mru_gate_blend"] / steps:g}, K4 '
+                  f'{want["mru_gate_bwd"] / steps:g} [{card}]')
+    finally:
+        ckpt.save_async = save_async
+    check(async_saves == [2] and ckpt.steps(ckpt_dir) == [2],
+          f'async saves {async_saves}, checkpoints {ckpt.steps(ckpt_dir)}')
+    check(os.path.exists(os.path.join(ckpt_dir, 'EdgeGAN-Model-2',
+                                      'state.npz')), 'no state.npz')
+    check(read_resume_markers(log) == [2],
+          f'resume markers {read_resume_markers(log)}')
+    rows = read_metrics(log)
+    check([r['step'] for r in rows] == [2, 3, 4],
+          f'steps logged {[r["step"] for r in rows]}')
+    for r in rows:
+        vals = {k: v for k, v in r.items() if k not in ('step', 'epoch')}
+        check(len(vals) == 11 and all(np.isfinite(v) for v in vals.values()),
+              f'metrics at step {r["step"]}: {vals}')
+    print('  last metrics: ' + json.dumps(rows[-1]))
+    loaded, counter, trees = ckpt.load_raw(ckpt_dir)
+    check(loaded and counter == 2, f'load_raw: {loaded} {counter}')
+    moved = max(float(np.abs(a - b0).max()) for a, b0 in zip(
+        _leaves(trees['aux']['D2']), _leaves(aux0['D2'])))
+    dtypes = {a.dtype for a in _leaves(trees['aux']['D2'])}
+    check(moved > 0 and dtypes == {np.dtype(np.float32)},
+          f'the classifier u: largest change {moved}, dtypes {dtypes}')
+    print(f'  checkpoint 2: the classifier u moved by up to {moved:.3g} '
+          f'(float32) after 1 step of update_sn')
+
+    # test: batch 1 and batched, from the checkpoint
+    half = w // 2
+    test_dir = os.path.join(out, 'life', 'test_output', 'ds')
+    n_files = len(valid) + 2
+    for label, flags, forwards in (
+            ('lifecycle test batch 1', [], len(valid)),
+            ('lifecycle test --test_batch_size 16',
+             ['--test_batch_size', '16'], -(-n_files // 16))):
+        shutil.rmtree(test_dir, ignore_errors=True)
+        _, wall = counted(label, test_cli.main, base + flags)
+        got = sorted(os.path.relpath(os.path.join(d, f), test_dir)
+                     for d, _, fs in os.walk(test_dir) for f in fs)
+        check(got == valid, f'{label}: wrote {len(got)} files, expected '
+              f'{len(valid)}: {sorted(set(got) ^ set(valid))[:4]}')
+        shapes = {np.asarray(Image.open(os.path.join(test_dir, f))).shape
+                  for f in got}
+        check(shapes == {(h, w + 2 * half, 3)}, f'{label}: shapes {shapes}')
+        k1 = launches[label]
+        check(k1['instance_norm_act'] == k1['instance_norm_act.lane_group']
+              == 6 * forwards and k1['instance_norm_act_bwd'] == 0,
+              f'{label}: launches {k1} for {forwards} forwards')
+        print(f'{label}: {len(valid)} of {n_files} files written (the class '
+              f'id {config.num_classes} and "misc" skipped), {forwards} '
+              f'forwards, K1 {k1["instance_norm_act"]} launches, all in '
+              f'lane groups, in {wall:.3f} s with start-up (host clock) '
+              f'[{card}]')
+        if not flags:
+            # batch 1's first file against the port's forward on the CPU
+            # from the same checkpoint, with the CLI's first noise draw
+            from edgegan_torch.data.dataset import Dataset
+            from edgegan_torch.utils.images import bytescale, inverse_transform
+            tcfg = Config().derive('test')
+            nets = bridge.load_jax_params(Networks(tcfg), trees['params'],
+                                          trees['aux'])
+            images, files = Dataset(
+                root, 'ds', float('inf'), 1, dict(
+                    input_height=h, input_width=w, output_height=h,
+                    output_width=w, crop=False, grayscale=False),
+                phase='test')[0]
+            ids, _ = test_cli.classes_padded(files, tcfg.num_classes)
+            eps = torch.randn(2, generator=torch.Generator().manual_seed(
+                6666))
+            with torch.no_grad():
+                edge, image = make_test_forward(nets, tcfg)(
+                    torch.from_numpy(images), torch.from_numpy(ids), eps)
+            want = bytescale(inverse_transform(test_cli.compose(
+                tcfg, images, edge.numpy(), image.numpy())[0]))
+            png = np.asarray(Image.open(os.path.join(
+                test_dir, test_cli.name_with_class(files[0]))))
+            diff = int(np.abs(png.astype(int) - want.astype(int)).max())
+            print(f'  {test_cli.name_with_class(files[0])}: card PNG vs the '
+                  f'CPU forward, largest byte difference {diff} (limit 1)')
+            check(diff <= 1, 'the test CLI output differs from the CPU '
+                  'forward')
+
+    # serve: `serve.main` without --weights, from the checkpoint directory
+    held, ready, errors = {}, threading.Event(), []
+    make_server = serve.make_server
+
+    def capture(cfg, batcher, port, host):
+        held.update(server=make_server(cfg, batcher, 0, host),
+                    batcher=batcher)
+        ready.set()
+        return held['server']
+
+    def run():
+        try:
+            serve.main(['--outputsroot', out, '--name', 'life',
+                        '--serve_batch', '16'])
+        except BaseException as e:  # reported below
+            errors.append(e)
+            ready.set()
+
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    serve.make_server = capture
+    thread = threading.Thread(target=run, daemon=True)
+    t0 = time.perf_counter()
+    thread.start()
+    try:
+        check(ready.wait(600) and not errors, f'serve.main: {errors}')
+        port = held['server'].server_address[1]
+        rng = np.random.RandomState(4)
+        raw = rng.uniform(-1, 1, (8, h, w, 3)).astype('<f4')
+        ids = ','.join(str(i % config.num_classes) for i in range(8))
+        status, body = _post(port, f'/generate?class_id={ids}&raw=1&n=8',
+                             raw.tobytes())
+        with open(os.path.join(root, 'ds', 'test', valid[0]), 'rb') as f:
+            png_status, png = _post(port, '/generate?class_id=0', f.read())
+    finally:
+        serve.make_server = make_server
+        if 'server' in held:
+            held['server'].shutdown()
+        thread.join(120)
+    wall = time.perf_counter() - t0
+    held['server'].server_close()
+    check(not thread.is_alive() and not errors,
+          f'serve.main did not return: {errors}')
+    launches['lifecycle serve'] = counts = dict(kernels.LAUNCHES)
+    batches = held['batcher']._n_dispatched
+    check(status == 200 and png_status == 200,
+          f'HTTP {status} (raw n=8), {png_status} (PNG)')
+    photos = np.frombuffer(body, '<f4').reshape(8, h, half, 3)
+    check(bool(np.isfinite(photos).all()) and np.abs(photos).max() <= 1,
+          'served photos not finite in [-1, 1]')
+    check(np.asarray(Image.open(io.BytesIO(png))).shape == (h, half, 3),
+          'PNG reply shape')
+    check(counts['instance_norm_act'] == counts[
+        'instance_norm_act.lane_group'] == 6 * batches and batches >= 2,
+        f'serve: launches {counts} for {batches} batches')
+    print(f'lifecycle serve: checkpoint 2 from {ckpt_dir}, warm-up, a raw '
+          f'n=8 and a PNG request answered 200 in {wall:.3f} s with '
+          f'start-up (host clock); {batches} batches, K1 '
+          f'{counts["instance_norm_act"]} launches [{card}]')
     return launches
 
 
@@ -1289,15 +1572,15 @@ def card_vs_cpu_phase(card: str):
     check(ok, 'a card step differs from the CPU step beyond the limits')
 
 
-def step_time_phase(card: str):
-    """Time per training step at the default batch 64 on a staged batch,
-    in float32 and bfloat16, each with the classifier switches off and on
-    in turns (off, on, on, off, off, on: 5 steps a turn, 15 per setting),
-    then the optimizer-group split and the profile of each of the four
-    settings. Returns {(dtype, switches): (CUDA-event ms, host ms, peak
-    GiB)} and the profiles' device ms per step by kernel (None where the
-    profile recorded fewer of its kernels than were launched), keyed the
-    same way."""
+def step_time_phase(card: str, update_mode: str = 'faithful'):
+    """Time per training step (`update_mode` 'faithful' or 'fast') at the
+    default batch 64 on a staged batch, in float32 and bfloat16, each with
+    the classifier switches off and on in turns (off, on, on, off, off,
+    on: 5 steps a turn, 15 per setting), then the optimizer-group split
+    and the profile of each of the four settings. Returns {(dtype,
+    switches): (CUDA-event ms, host ms, peak GiB)} and the profiles' device
+    ms per step by kernel (None where the profile recorded fewer of its
+    kernels than were launched), keyed the same way."""
     import numpy as np
     import torch
 
@@ -1310,8 +1593,9 @@ def step_time_phase(card: str):
 
     rng = np.random.RandomState(3)
     times, profiles = {}, {}
+    spans = GROUP_SPANS[update_mode]
     for dtype in ('float32', 'bfloat16'):
-        config = Config(dtype=dtype).derive('train')
+        config = Config(dtype=dtype, update_mode=update_mode).derive('train')
         b, h, w = config.batch_size, config.output_height, config.output_width
         nets = bridge.load_jax_params(Networks(config, critics=True),
                                       *bridge.random_jax_params(
@@ -1345,17 +1629,18 @@ def step_time_phase(card: str):
             ms, host_ms, peak = (float(np.mean(v)) for v in zip(*got))
             times[(dtype, switches)] = (ms, host_ms, max(v[2] for v in got))
             print(f'time per training step at batch {b} {dtype}, classifier '
-                  f'switches {"on" if switches else "off"} (faithful, 7 '
-                  f'groups): {ms:.3f} ms (CUDA events, 3 turns of 5 back to '
-                  f'back: ' + ', '.join(f'{t[0]:.3f}' for t in got)
+                  f'switches {"on" if switches else "off"} ({update_mode}, '
+                  f'{len(spans)} updates): {ms:.3f} ms (CUDA events, 3 turns '
+                  f'of 5 back to back: ' + ', '.join(f'{t[0]:.3f}' for t in got)
                   + f'), {host_ms:.3f} ms one at a time (host clock, 9 '
                   f'steps); peak device memory '
                   f'{times[(dtype, switches)][2]:.2f} GiB [{card}]')
         for switches in (False, True):
-            label = f'{dtype}, switches {"on" if switches else "off"}'
+            label = (f'{update_mode} {dtype}, switches '
+                     f'{"on" if switches else "off"}')
             with classifier_switches(switches):
                 print(f'{label}:')
-                group_split(card, one)
+                group_split(card, one, spans)
                 for k in kernels.LAUNCHES:
                     kernels.LAUNCHES[k] = 0
                 by_name, calls = profile_steps(
@@ -1363,24 +1648,15 @@ def step_time_phase(card: str):
                     n=PROFILED_STEPS, unit='step')
                 launched = {k: v / PROFILED_STEPS
                             for k, v in kernels.LAUNCHES.items()}
-            # K1 and K2: every call of the profiled steps in a lane group;
-            # K3 and K4: 12 a step with the switches on, split across the
-            # variants as gate_plan sends the four gates
-            for name, want in (('instance_norm_act', K1_PER_STEP),
-                               ('instance_norm_act_bwd', K2_PER_STEP)):
-                check(launched[name] == launched[f'{name}.lane_group']
-                      == want, f'{label}: {name} launched {launched[name]:g}'
-                      f' times per step, {launched[f"{name}.lane_group"]:g}'
-                      f' in lane groups (expected {want}, all)')
-            split = {v: int(switches) * CLASSIFIER_PASSES * n
-                     for v, n in gate_split(getattr(torch, dtype)).items()}
+            want = expected_launches(update_mode, getattr(torch, dtype),
+                                     switches)
+            check(launched == want, f'{label}: launches per step '
+                  f'{launched}, expected {want}')
             for name in ('mru_gate_blend', 'mru_gate_bwd'):
-                got = {v: launched[f'{name}.{v}'] for v in split}
-                check(launched[name] == sum(split.values()) and got == split,
-                      f'{label}: {name} launched {launched[name]:g} times per '
-                      f'step, by variant {got} (expected {split})')
                 print(f'  {name}: {launched[name]:g} launches per step, by '
-                      f'variant {got} ({label}) [{card}]')
+                      f'variant ' + str({v: launched[f'{name}.{v}'] for v in
+                                         kernels.GATE_VARIANTS})
+                      + f' ({label}) [{card}]')
             per_step = {}
             # (profile name, its kernels' names, LAUNCHES key, kernels a
             # launch)
@@ -1457,18 +1733,23 @@ def host_cost_phase(card: str):
 
 # the step's optimizer updates in order; each update ends one span of
 # device time, which holds that group's forward and backward
-GROUP_SPANS = ['joint critic D (with the shared fakes)', 'image critic D_patch2',
-               'edge critic D_patch3', 'classifier D2',
-               'generators, 1st update (G1 slots)', 'G2 slots',
-               'encoder E (with the G1 forward)',
-               'generators, 2nd update (G1 slots)', 'G2 slots']
+CRITIC_SPANS = ['joint critic D (with the shared fakes)',
+                'image critic D_patch2', 'edge critic D_patch3',
+                'classifier D2']
+GROUP_SPANS = {
+    'faithful': CRITIC_SPANS + ['generators, 1st update (G1 slots)',
+                                'G2 slots', 'encoder E (with the G1 forward)',
+                                'generators, 2nd update (G1 slots)',
+                                'G2 slots'],
+    'fast': CRITIC_SPANS + ['generators (G1 slots)', 'G2 slots',
+                            'encoder E (on the step-start fake)']}
 
 
-def group_split(card: str, step, n: int = 5):
+def group_split(card: str, step, spans, n: int = 5):
     """Device time per optimizer group of a training step: a CUDA event is
-    recorded after every RMSProp update (one per group and generator), so
-    the time between two events is one group's forward, backward and
-    update. Averaged over `n` back-to-back steps."""
+    recorded after every RMSProp update (one per group and generator, as
+    named in `spans`), so the time between two events is one group's
+    forward, backward and update. Averaged over `n` back-to-back steps."""
     import torch
 
     from edgegan_torch.train.state import RMSProp
@@ -1484,24 +1765,24 @@ def group_split(card: str, step, n: int = 5):
 
     RMSProp.update = marked
     try:
-        spans = [0.0] * len(GROUP_SPANS)
+        times = [0.0] * len(spans)
         for _ in range(n):
             start = torch.cuda.Event(enable_timing=True)
             start.record()
             marks.clear()
             step()
             torch.cuda.synchronize()
-            if len(marks) != len(GROUP_SPANS):
+            if len(marks) != len(spans):
                 raise RuntimeError(f'{len(marks)} optimizer updates per step')
             for i, event in enumerate(marks):
-                spans[i] += (marks[i - 1] if i else start).elapsed_time(
+                times[i] += (marks[i - 1] if i else start).elapsed_time(
                     event) / n
     finally:
         RMSProp.update = update
-    total = sum(spans)
+    total = sum(times)
     print(f'training step by optimizer group (CUDA events, {n} steps): '
           f'{total:.3f} ms [{card}]')
-    for name, ms in zip(GROUP_SPANS, spans):
+    for name, ms in zip(spans, times):
         print(f'  {100 * ms / total:5.1f}% {ms:8.3f} ms  {name}')
 
 
@@ -1652,8 +1933,10 @@ def main() -> int:
         phase('K3/K4 variants', gate_variants_phase, card)
         phase('serve', serving_phase, card)
         phase('train', train_phase, card, tmp)
+        phase('lifecycle', lifecycle_phase, card, tmp)
         phase('card_vs_cpu', card_vs_cpu_phase, card)
         phase('step_time', step_time_phase, card)
+        phase('step_time fast', step_time_phase, card, 'fast')
         phase('host_cost', host_cost_phase, card)
     if failed:
         print(f'chip_smoke: failed phases: {", ".join(failed)}',
@@ -1664,11 +1947,19 @@ def main() -> int:
     k2_err, k2_sums, k2_prev = results['K2']
     k5_err, dleak_err, k5_steps = results['K5']
     gate_err, gate_steps = results['K3/K4']
-    train_runs = results['train']
+    train_runs = {**results['train'], **results['lifecycle']}
     times, prof = results['step_time']
+    fast_times, fast_prof = results['step_time fast']
 
     def by_run(key):
         return {label: counts[key] for label, counts in train_runs.items()}
+
+    def fast_device_ms(kname, switched_only=False):
+        """A kernel's device ms per fast step from its profile, by
+        setting."""
+        return {f'{d}, switches {"on" if on else "off"}': p[kname]
+                for (d, on), p in fast_prof.items()
+                if on or not switched_only}
 
     k1_launches = {'serve': results['serve'], **by_run('instance_norm_act')}
     k1 = k1_sums[(16, 'bfloat16')]
@@ -1691,6 +1982,7 @@ def main() -> int:
             train_step_device_ms={
                 f'{d}, switches {"on" if on else "off"}': p[
                     'instance_norm_act_fwd'] for (d, on), p in prof.items()},
+            fast_step_device_ms=fast_device_ms('instance_norm_act_fwd'),
             train_step_yardstick_ms={
                 d: K1_PER_STEP / 3 * k1_sums[(64, d)]['library_ms']
                 for d in ('float32', 'bfloat16')},
@@ -1712,6 +2004,7 @@ def main() -> int:
             train_step_device_ms={
                 f'{d}, switches {"on" if on else "off"}': p[
                     'instance_norm_act_bwd'] for (d, on), p in prof.items()},
+            fast_step_device_ms=fast_device_ms('instance_norm_act_bwd'),
             **in_extras('K2', k2_sums, k2_prev, results)),
         _kernel_entry(
             'prelu_bwd', 'edgegan_torch/csrc/prelu_bwd.cu',
@@ -1726,7 +2019,8 @@ def main() -> int:
             dleak_max_err_of_sum_abs_terms=dleak_err,
             train_step_device_ms={
                 d: prof[(d, True)]['prelu_bwd']
-                for d in ('float32', 'bfloat16')}),
+                for d in ('float32', 'bfloat16')},
+            fast_step_device_ms=fast_device_ms('prelu_bwd', True)),
         _kernel_entry(
             'mru_gate_blend', 'edgegan_torch/csrc/mru_gate.cu',
             'edgegan_tpu/ops/pallas_kernels.py:368',
@@ -1739,6 +2033,7 @@ def main() -> int:
             train_step_device_ms={
                 d: prof[(d, True)]['mru_gate_fwd']
                 for d in ('float32', 'bfloat16')},
+            fast_step_device_ms=fast_device_ms('mru_gate_fwd', True),
             **gate_extras('K3', gate_steps['K3'], results)),
         _kernel_entry(
             'mru_gate_bwd', 'edgegan_torch/csrc/mru_gate.cu',
@@ -1752,9 +2047,12 @@ def main() -> int:
             train_step_device_ms={
                 d: prof[(d, True)]['mru_gate_bwd']
                 for d in ('float32', 'bfloat16')},
+            fast_step_device_ms=fast_device_ms('mru_gate_bwd', True),
             **gate_extras('K4', gate_steps['K4'], results)),
     ], 'train_step_ms': {f'{d}, switches {"on" if on else "off"}': t[0]
                          for (d, on), t in times.items()},
+        'fast_step_ms': {f'{d}, switches {"on" if on else "off"}': t[0]
+                         for (d, on), t in fast_times.items()},
         'host_us_per_call': results['host_cost']}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -4,8 +4,9 @@ The JAX trees are nested dicts of numpy arrays keyed by the reference's
 scope names: `params` as `jax.tree.map(np.asarray, state.params)` gives
 it, and `aux` holding each network's other collections: `batch_stats`
 (carried over, never read: quirk Q14) and the classifier's `spectral`
-vectors `u` (frozen: quirk Q3). The port's modules use the same names, so
-the map is by name; only the layouts differ:
+vectors `u` (frozen unless the step's `update_sn`: quirk Q3). The port's
+modules use the same names, so the map is by name; only the layouts
+differ:
 
   conv kernel     HWIO [k,k,in,out]  -> OIHW [out,in,k,k]
                   (Conv2D `w`, SNConv2D `weights`)

@@ -10,15 +10,24 @@ reader never sees half of one.
 
 - Retention keeps the newest `keep` entries (tf.train.Saver's default
   of 5, reference models/edgegan.py:421); keep <= 0 keeps all.
-- `load` walks the entries newest first and skips one that cannot be
-  read or holds a non-finite value.
+- `load` (into a train state) and `load_raw` (the stored trees, for the
+  test CLI and the server, which need G1, G2 and E only and so do not
+  depend on the critics' sizes) walk the entries newest first and skip
+  one that cannot be read or holds a non-finite value.
+- `save_async` copies the state to host memory on the caller's thread
+  and writes it on a background thread, one save in flight; its
+  retention runs once the write is in place (`wait_for_async`, which the
+  next save of any kind, and the trainer before it exits, calls).
 - A nan_policy=halt save goes to `EdgeGAN-Model-<step>-halt`, which
   `load`, `steps` and retention never see; only the newest is kept.
+- `prune_nonfinite_checkpoints` deletes the non-finite tail of a
+  diverged run's entries.
 
-Waiting: asynchronous saves and loading a JAX (Orbax) checkpoint.
+Waiting: loading a JAX (Orbax) checkpoint.
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
 import os
 import re
 import shutil
@@ -74,33 +83,80 @@ def state_trees(state: TrainState):
     return flat
 
 
-def _write(path: str, state: TrainState):
+def _write(path: str, flat):
+    """Write the npz contents `flat` as the entry `path`: to a temporary
+    directory, flushed to disk, then renamed into place."""
     tmp = f'{path}.tmp-{os.getpid()}'
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    np.savez(os.path.join(tmp, STATE_FILE), **state_trees(state))
+    with open(os.path.join(tmp, STATE_FILE), 'wb') as f:
+        np.savez(f, **flat)
+        f.flush()
+        os.fsync(f.fileno())
     shutil.rmtree(path, ignore_errors=True)
     os.replace(tmp, path)
 
 
-def save(checkpoint_dir: str, step: int, state: TrainState, keep: int = 5):
-    """Save `state` under the counter `step`, then apply retention."""
-    os.makedirs(checkpoint_dir, exist_ok=True)
-    _write(_ckpt_path(checkpoint_dir, step), state)
+def _retain(checkpoint_dir: str, keep: int):
     if keep > 0:
         for old in steps(checkpoint_dir)[:-keep]:
             shutil.rmtree(_ckpt_path(checkpoint_dir, old), ignore_errors=True)
 
 
+def save(checkpoint_dir: str, step: int, state: TrainState, keep: int = 5):
+    """Save `state` under the counter `step`, then apply retention. Waits
+    for an asynchronous save in flight first."""
+    wait_for_async()
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    _write(_ckpt_path(checkpoint_dir, step), state_trees(state))
+    _retain(checkpoint_dir, keep)
+
+
 def save_halt(checkpoint_dir: str, step: int, state: TrainState):
     """Save a nan_policy=halt state under `EdgeGAN-Model-<step>-halt`,
     keeping only this newest halt entry."""
+    wait_for_async()
     os.makedirs(checkpoint_dir, exist_ok=True)
-    _write(_ckpt_path(checkpoint_dir, step) + HALT_SUFFIX, state)
+    _write(_ckpt_path(checkpoint_dir, step) + HALT_SUFFIX, state_trees(state))
     for old in halt_steps(checkpoint_dir):
         if old != step:
             shutil.rmtree(_ckpt_path(checkpoint_dir, old) + HALT_SUFFIX,
                           ignore_errors=True)
+
+
+# One writer thread, so one save in flight (made at the first submit,
+# not at import); the in-flight save: (future, checkpoint_dir, keep).
+_writer = cf.ThreadPoolExecutor(max_workers=1,
+                                thread_name_prefix='edgegan-checkpoint')
+_inflight = None
+
+
+def save_async(checkpoint_dir: str, step: int, state: TrainState,
+               keep: int = 5):
+    """Save `state` under the counter `step` without waiting for the
+    write. Waits for the previous asynchronous save first (one in
+    flight). The state is copied to host numpy here, on the caller's
+    thread: each copy waits for the work queued on the parameters, and
+    the train step updates them in place, so the writer must not read
+    them later. Callers call `wait_for_async()` before they exit."""
+    global _inflight
+    wait_for_async()
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    future = _writer.submit(_write, _ckpt_path(checkpoint_dir, step),
+                            state_trees(state))
+    _inflight = (future, checkpoint_dir, keep)
+
+
+def wait_for_async():
+    """Block until the save in flight, if any, is in place, then apply its
+    retention (never while its own entry is being written). Raises what
+    its write raised."""
+    global _inflight
+    pending, _inflight = _inflight, None
+    if pending is not None:
+        future, checkpoint_dir, keep = pending
+        future.result()
+        _retain(checkpoint_dir, keep)
 
 
 def read(checkpoint_dir: str, step: int):
@@ -123,11 +179,9 @@ def _finite(trees) -> bool:
     return walk(trees)
 
 
-def load(checkpoint_dir: str, state: TrainState
-         ) -> Tuple[bool, int, Optional[TrainState]]:
-    """Restore the newest readable, finite entry into `state` (in place);
-    returns (loaded, counter, state), or (False, 0, None) when there is
-    none, as the reference's load() does (models/edgegan.py:641-657)."""
+def _newest_readable(checkpoint_dir: str):
+    """(counter, trees, stored step) of the newest entry that can be read
+    and holds only finite values, or None."""
     for step in reversed(steps(checkpoint_dir)):
         try:
             trees, saved_step = read(checkpoint_dir, step)
@@ -140,9 +194,55 @@ def load(checkpoint_dir: str, state: TrainState
             print(f' [!] checkpoint {MODEL_NAME}-{step} has non-finite '
                   'values; trying previous')
             continue
-        apply(state, trees, saved_step)
-        return True, step, state
-    return False, 0, None
+        return step, trees, saved_step
+    return None
+
+
+def load(checkpoint_dir: str, state: TrainState
+         ) -> Tuple[bool, int, Optional[TrainState]]:
+    """Restore the newest readable, finite entry into `state` (in place);
+    returns (loaded, counter, state), or (False, 0, None) when there is
+    none, as the reference's load() does (models/edgegan.py:641-657)."""
+    found = _newest_readable(checkpoint_dir)
+    if found is None:
+        return False, 0, None
+    step, trees, saved_step = found
+    apply(state, trees, saved_step)
+    return True, step, state
+
+
+def load_raw(checkpoint_dir: str, step: Optional[int] = None):
+    """The stored trees of an entry without a target state: (loaded,
+    counter, {'params', 'aux', 'opt'}) with every network's trees in the
+    JAX layouts, or (False, 0, None). The newest readable, finite entry,
+    or with `step` that entry as it is (the JAX package's load_raw,
+    checkpoint.py:258-279)."""
+    if step is not None:
+        if step not in steps(checkpoint_dir):
+            return False, 0, None
+        return True, step, read(checkpoint_dir, step)[0]
+    found = _newest_readable(checkpoint_dir)
+    if found is None:
+        return False, 0, None
+    return True, found[0], found[1]
+
+
+def prune_nonfinite_checkpoints(checkpoint_dir: str):
+    """Delete, newest first, every entry whose parameters are not all
+    finite, down to the newest finite one; returns (that counter, the
+    deleted counters). Raises SystemExit when none survives (the JAX
+    package's checkpoint.py:99-133)."""
+    pruned = []
+    while True:
+        counters = steps(checkpoint_dir)
+        if not counters:
+            raise SystemExit('no finite checkpoint survived')
+        step = counters[-1]
+        _, _, trees = load_raw(checkpoint_dir, step)
+        if _finite(trees['params']):
+            return step, pruned
+        pruned.append(step)
+        shutil.rmtree(_ckpt_path(checkpoint_dir, step), ignore_errors=True)
 
 
 def apply(state: TrainState, trees, step: int):

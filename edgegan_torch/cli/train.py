@@ -4,14 +4,19 @@ package's cli/train.py:29-353).
 Flag-compatible with the JAX trainer (every `Config` field is a flag),
 plus `--device` (default `cuda`: the card `cuda:<gpu>`; `cpu` runs the
 plain versions of the kernels). One process, one device. `--dtype
-bfloat16` trains in mixed precision (see `train/step.py`); the classifier's
-kernels K5 and K3/K4 run when EDGEGAN_PALLAS_PRELU=1 and
-EDGEGAN_PALLAS_GATE=1 are set (`ops/kernels.py`), off by default.
+bfloat16` trains in mixed precision, `--update_mode fast` takes the
+cheaper step, `--update_sn True` advances the classifier's spectral norms
+and `--reference_metrics True` logs the losses re-evaluated after the
+step (see `train/step.py`); the classifier's kernels K5 and K3/K4 run
+when EDGEGAN_PALLAS_PRELU=1 and EDGEGAN_PALLAS_GATE=1 are set
+(`ops/kernels.py`), off by default.
 
 - Resumes from the newest finite checkpoint and counts on from its
   counter; the epoch loop restarts at 0, as the JAX trainer's does.
-- Saves at `counter % save_checkpoint_frequency == 2` (quirk Q9), and on
-  SIGTERM/SIGINT after the current step.
+- Saves at `counter % save_checkpoint_frequency == 2` (quirk Q9)
+  asynchronously (`checkpoint.save_async`: the loop waits for the copy to
+  host memory only), and on SIGTERM/SIGINT after the current step
+  synchronously; every exit waits until the last save is in place.
 - Prints the reference's stdout line (with the 2x d-loss quirk Q11) and
   appends every step's metrics to `<logdir>/metrics.jsonl`, with a
   `{"resumed_at": counter}` line on each resume.
@@ -177,8 +182,8 @@ def main(argv=None):
                     profiler = None
                 if counter % config.save_checkpoint_frequency == 2:
                     print(' [*] Saving checkpoints...')
-                    ckpt.save(config.checkpoint_dir, counter, state,
-                              keep=config.keep_checkpoint_max)
+                    ckpt.save_async(config.checkpoint_dir, counter, state,
+                                    keep=config.keep_checkpoint_max)
                 if stop_requested:
                     break
         if pending is not None and not halted:
@@ -199,6 +204,7 @@ def main(argv=None):
         metrics_log.close()
         for sig, handler in previous.items():
             signal.signal(sig, handler)
+        ckpt.wait_for_async()  # a cadence save may still be writing
     return state
 
 

@@ -1,11 +1,17 @@
-"""File-glob training dataset (reference utils/data/dataset.py; a copy of
-the JAX package's data/dataset.py:29-210, train listing, PIL decoding).
+"""File-glob dataset (reference utils/data/dataset.py; a copy of the JAX
+package's data/dataset.py:22-210, PIL decoding).
 
 Directory semantics kept exactly:
-  multiclass:  <dataroot>/<name>/train/<classid>/*.{png,jpg}
-  flat:        <dataroot>/<name>/train/*.png
-The class id is parsed from the parent directory's name; the last
-partial batch is dropped (quirk Q10). The shuffle is seeded by `seed`.
+  train, multiclass:  <dataroot>/<name>/train/<classid>/*.{png,jpg}
+  train, flat:        <dataroot>/<name>/train/*.png
+  test:               <dataroot>/<name>/test/**/*.{png,jpg}, recursive,
+                      sorted
+In training the class id is parsed from the parent directory's name; the
+last partial batch is dropped (quirk Q10), unless `pad_tail` (test phase
+only), which pads it to a full batch with repeats of its last file,
+named `Dataset.PAD` so that callers drop those rows. The shuffle is
+seeded by `seed`. A training batch is (images, z, files), a test batch
+(images, files).
 
 z: with `host_z`, every batch carries its own N(0, 1) latents, derived
 from a counter (seed, shuffle generation, batch index) so that they do
@@ -13,13 +19,13 @@ not depend on which prefetch thread decodes the batch, followed by the
 class-id column; without it (the default) only the class-id column is
 returned and the train step draws z on the device.
 
-Waiting: the test-phase listing (with `cli/test.py`) and the native C++
-decoder (`native_loader.py`).
+Waiting: the native C++ decoder (`native_loader.py`).
 """
 from __future__ import annotations
 
 import os
 from glob import glob
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -28,12 +34,21 @@ from ..utils.images import get_image
 
 
 class Dataset:
+    #: the file name of a padded row of a tail batch (`pad_tail`)
+    PAD = '<pad>'
+
     def __init__(self, dataroot: str, name: str, size, batchsize: int,
                  config: dict, num_classes: Optional[int] = None,
-                 cache: bool = False, seed: int = 0, host_z: bool = False):
+                 cache: bool = False, seed: int = 0, host_z: bool = False,
+                 phase: str = 'train', pad_tail: bool = False):
         """`config` holds input_height/width, output_height/width, crop,
-        grayscale and z_dim. `cache=True` keeps every decoded image in
-        RAM after first use."""
+        grayscale and (training) z_dim. `cache=True` keeps every decoded
+        image in RAM after first use."""
+        if phase not in ('train', 'test'):
+            raise ValueError(f'phase {phase!r}: train or test')
+        if pad_tail and phase != 'test':
+            raise ValueError('pad_tail is a test-phase option')
+        self.phase, self.pad_tail = phase, pad_tail
         self.batchsize = batchsize
         self.num_classes = num_classes
         self.config = config
@@ -43,7 +58,11 @@ class Dataset:
         self._z_base = seed
         self._shuffle_gen = 0
         self.rng = np.random.RandomState(seed)
-        if num_classes is not None:
+        if phase == 'test':
+            data_path = os.path.join(dataroot, name, 'test')
+            self.data = sorted(str(p) for ext in ('*.png', '*.jpg')
+                               for p in Path(data_path).rglob(ext))
+        elif num_classes is not None:
             self.data = []
             for i in range(num_classes):
                 for ext in ('*.png', '*.jpg'):
@@ -55,7 +74,7 @@ class Dataset:
             self.data = glob(data_path)
         if not self.data:
             raise FileNotFoundError(f"[!] No data found in '{data_path}'")
-        if len(self.data) < batchsize:
+        if len(self.data) < batchsize and not pad_tail:
             raise ValueError('[!] Entire dataset size is less than the '
                              'configured batch_size')
         self.size = int(min(len(self.data), size))
@@ -65,6 +84,8 @@ class Dataset:
         self._shuffle_gen += 1  # advances the per-epoch z streams
 
     def __len__(self):
+        if self.pad_tail:
+            return -(-self.size // self.batchsize)
         return self.size // self.batchsize  # drops the last partial batch
 
     def _load(self, f):
@@ -83,9 +104,13 @@ class Dataset:
 
     def __getitem__(self, idx):
         """-> (images [B, H, W, 3] float32 in [-1, 1], z [B, feed width]
-        float32, file names)."""
+        float32, file names) in training, (images, file names) in the
+        test phase."""
         files = self.data[idx * self.batchsize:(idx + 1) * self.batchsize]
-        images = np.stack([self._load(f) for f in files])
+        n_pad = self.batchsize - len(files) if self.pad_tail else 0
+        images = np.stack([self._load(f) for f in files + files[-1:] * n_pad])
+        if self.phase == 'test':
+            return images, files + [self.PAD] * n_pad
         classes = None
         if self.num_classes is not None:
             classes = np.array(

@@ -3,7 +3,8 @@ ahead (the JAX package's data/loader.py) and hands them over as CPU
 tensors, in pinned memory when `pin` is set so that the train loop's
 `.to(device, non_blocking=True)` copies overlap the card's work. With
 `image_dtype` the images are cast on the host (bfloat16 training copies
-half the bytes, as the JAX trainer does)."""
+half the bytes, as the JAX trainer does). A training batch is (images,
+z, files), a test batch (images, files); the file names pass through."""
 from __future__ import annotations
 
 import concurrent.futures as cf
@@ -23,13 +24,13 @@ class PrefetchLoader:
         self.pool = cf.ThreadPoolExecutor(max_workers=num_workers)
 
     def _fetch(self, idx):
-        images, z, files = self.dataset[idx]
-        images, z = torch.from_numpy(images), torch.from_numpy(z)
+        *arrays, files = self.dataset[idx]
+        images, *z = [torch.from_numpy(a) for a in arrays]
         if self.image_dtype is not None:
             images = images.to(self.image_dtype)
         if self.pin:
-            images, z = images.pin_memory(), z.pin_memory()
-        return images, z, files
+            images, *z = [t.pin_memory() for t in (images, *z)]
+        return (images, *z, files)
 
     def __len__(self):
         return len(self.dataset)

@@ -55,7 +55,8 @@ def random_blend(a, b, alpha):
     return b + alpha.to(a.dtype).view(-1, *([1] * (a.dim() - 1))) * (a - b)
 
 
-def gradient_penalty(d_apply, synthesized, real, alpha, weight):
+def gradient_penalty(d_apply, synthesized, real, alpha, weight,
+                     create_graph: bool = True):
     """WGAN-GP on a random blend (models/edgegan.py:38-42,
     functional.py:26-29).
 
@@ -63,17 +64,19 @@ def gradient_penalty(d_apply, synthesized, real, alpha, weight):
     tf.gradients, so the penalty differentiates sum(sigmoid(D)) + sum(D)
     with respect to the blend, which is a constant here: the train step
     hands in detached fakes, as JAX computes them outside every
-    `value_and_grad` (train/step.py:153-162). The gradient keeps its graph
-    (`create_graph=True`) so that the penalty's own gradient reaches the
-    critic's weights; the critic's ops are all plain, twice
-    differentiable. At a zero gradient norm the sqrt is guarded (its
-    backward would be inf there) unless EDGEGAN_NAN_GUARDS=0.
+    `value_and_grad` (train/step.py:153-162). For a training loss the
+    gradient keeps its graph (`create_graph`) so that the penalty's own
+    gradient reaches the critic's weights; the critic's ops are all
+    plain, twice differentiable. A penalty that is only reported
+    (`reference_metrics`) passes create_graph=False and keeps no graph.
+    At a zero gradient norm the sqrt is guarded (its backward would be inf
+    there) unless EDGEGAN_NAN_GUARDS=0.
     """
     interpolated = random_blend(synthesized, real, alpha).detach()
     interpolated.requires_grad_(True)
     sig, logit = d_apply(interpolated)
     grads, = torch.autograd.grad(sig.sum() + logit.sum(), interpolated,
-                                 create_graph=True)
+                                 create_graph=create_graph)
     sumsq = torch.sum(torch.square(grads.float()), dim=(1, 2, 3))
     if nan_guards_enabled():
         positive = sumsq > 0

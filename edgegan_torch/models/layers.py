@@ -7,9 +7,10 @@ so `bridge.py` maps the two trees by name; only the layouts differ (see
 `ops/conv.py`). Weights are made zero here and come in through the bridge.
 Every weight is a trainable parameter; serving runs under
 `torch.inference_mode()`, so it keeps no autograd state. The spectral-norm
-vectors `u` are buffers (the JAX package's `spectral` collection), never
-updated (quirk Q3). Each op casts its weight to the input dtype, as the
-JAX package does per op.
+vectors `u` are float32 buffers (the JAX package's `spectral` collection).
+They stay frozen (quirk Q3) unless the training step's `update_sn` calls
+`advance_spectral_norms`. Each op casts its weight to the input dtype, as
+the JAX package does per op.
 """
 from __future__ import annotations
 
@@ -240,6 +241,21 @@ class SNDense(nn.Module):
     def forward(self, x):
         w, _ = norms.spectral_normalize(self.weights, self.u)
         return F.linear(x, w.to(x.dtype), self.biases.to(x.dtype))
+
+
+@torch.no_grad()
+def advance_spectral_norms(module: nn.Module):
+    """One power iteration for every spectral-norm layer in `module`:
+    `u <- u_new` of `spectral_normalize(weights, u)`, the JAX package's
+    `update_sn` (layers.py:294-345). u_new depends on the layer's weight
+    and its `u` only, not on the input, so no forward is needed: this is
+    what JAX's `classifier.apply(..., mutable=['spectral'])` leaves in the
+    collection, for every layer it reaches (`disc_head` included). `u`
+    stays float32 under bfloat16, as JAX computes it from the float32
+    parameter."""
+    for m in module.modules():
+        if isinstance(m, (SNConv2D, SNDense)):
+            m.u.copy_(norms.spectral_normalize(m.weights, m.u)[1])
 
 
 class MRUBlock(nn.Module):

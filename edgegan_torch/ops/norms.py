@@ -6,7 +6,8 @@
   `is_training=True`, quirk Q14), learnable gamma/beta, eps INSIDE the
   sqrt, computed in float32 and cast back.
 - spectral_normalize: one power iteration from a stored `u` (reference
-  normalization.py:38-76); `u` itself stays frozen (quirk Q3).
+  normalization.py:38-76); `u` itself stays frozen (quirk Q3) unless the
+  caller stores the u_new it returns (`update_sn`).
 
 Statistics are float32 whatever the input dtype.
 """

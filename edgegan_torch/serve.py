@@ -23,8 +23,12 @@ Endpoints:
                               503 when the pipeline is dead.
 
 Usage:
-  python -m edgegan_torch.serve --weights weights.npz --port 8000 \
+  python -m edgegan_torch.serve --name <run> --port 8000 \
       --serve_batch 16 [--device cpu]
+serves G1, G2 and E of the newest readable checkpoint under the run's
+`checkpoint_dir` (`<outputsroot>/<name>/checkpoints`, as the trainer
+writes it); `--weights weights.npz` (`bridge.save_npz`) serves those
+weights instead.
 """
 from __future__ import annotations
 
@@ -452,13 +456,15 @@ def make_server(config: Config, batcher: Batcher, port: int = 8000,
 def main(argv=None):
     import argparse
 
+    from . import checkpoint as ckpt
     from .bridge import load_jax_params, load_npz
     from .core.config import add_config_args, config_from_args
 
     parser = argparse.ArgumentParser('edgegan_torch.serve')
     add_config_args(parser, 'test')
-    parser.add_argument('--weights', type=str, required=True,
-                        help='npz of the G1/G2/E trees (bridge.save_npz)')
+    parser.add_argument('--weights', type=str, default=None,
+                        help='npz of the G1/G2/E trees (bridge.save_npz), '
+                             'served instead of the newest checkpoint')
     parser.add_argument('--device', type=str, default='cuda',
                         choices=['cuda', 'cpu'],
                         help="'cuda' runs on cuda:<gpu>")
@@ -479,9 +485,16 @@ def main(argv=None):
     config = config_from_args(args).derive('test')
 
     nets = Networks(config)
-    params, aux = load_npz(args.weights)
+    if args.weights:
+        params, aux = load_npz(args.weights)
+        print(f' [*] serving weights {args.weights}')
+    else:
+        loaded, counter, trees = ckpt.load_raw(config.checkpoint_dir)
+        if not loaded:
+            raise SystemExit(f'no checkpoint under {config.checkpoint_dir}')
+        params, aux = trees['params'], trees['aux']
+        print(f' [*] serving checkpoint step {counter}')
     load_jax_params(nets, params, aux)
-    print(f' [*] serving weights {args.weights}')
     batcher = Batcher(nets, config, max_batch=args.serve_batch,
                       max_wait_ms=args.max_wait_ms, seed=config.seed,
                       depth=args.serve_depth,

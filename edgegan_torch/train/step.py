@@ -10,12 +10,28 @@ on the parameters the earlier groups left (`update_mode='faithful'`):
   6.   the encoder (z reconstruction of the new edge generator's output),
   7.   both generators again, with the same RMSProp slots (quirk Q5).
 
+`update_mode='fast'` (JAX l.248-260) runs groups 1-4 the same way, then
+one generator update, then the encoder on the step-start `edge_fake` (the
+fake the critics saw), and no group 7: cheaper, not dynamics-identical.
+
 Every group takes its gradient with `torch.autograd.grad` with respect to
 its own parameters only, so no other group's gradient is built or kept.
 The fakes the critics see are made once, without a graph, before group 1,
 as JAX makes them outside every `value_and_grad`; so the penalty's second
 derivative never reaches the generators, whose kernels (K1/K2) are
 first-order only.
+
+Options (JAX l.214-221, 264-285):
+- `update_sn`: after the classifier's update, every spectral-norm `u` of
+  the classifier takes one power iteration against its new weights
+  (`models/layers.advance_spectral_norms`); off, `u` stays frozen (Q3).
+- `reference_metrics`: after all groups, the critics' losses (WGAN +
+  penalty, each with a fresh blend `draws.alpha_eval`, on the resized
+  real halves of the step's start) and the generators' losses are
+  evaluated again on the post-step weights, from one fresh generator
+  forward, as the reference logs them; `loss_d_ac` and `zl_loss` are
+  not, as in JAX. The penalty takes the critic's input gradient without
+  a graph, and nothing here builds a parameter gradient.
 
 The step's random numbers come in `draws` (see `Draws`): one blend weight
 per sample for each critic's penalty, the encoder's scalar eps, and with
@@ -26,11 +42,9 @@ on the device; the tests hand in the JAX step's own draws.
 143-146): the images and the generators' input are cast to bfloat16 after
 the class column is read, and every layer casts its float32 weight to its
 input's dtype, so the networks run in bfloat16, while the master weights,
-the RMSProp slots, the losses (`.float()` at the loss boundary) and the
-metrics stay float32, and so do the labels and the encoder's L1 target.
-
-Waiting, and raising NotImplementedError: `update_mode='fast'`,
-`reference_metrics` and `update_sn`.
+the RMSProp slots, the spectral-norm vectors, the losses (`.float()` at
+the loss boundary) and the metrics stay float32, and so do the labels and
+the encoder's L1 target.
 """
 from __future__ import annotations
 
@@ -42,6 +56,7 @@ import torch
 from .. import losses as L
 from ..core.config import Config
 from ..infer import exact_f32
+from ..models.layers import advance_spectral_norms
 from ..ops.resize import resize
 from .networks import Networks
 from .state import GROUPS, RMSProp, TrainState, group_params
@@ -59,10 +74,12 @@ class Draws:
     """One step's random numbers. `alpha`: critic name -> [B] blend
     weights in [0, 1); `eps`: the encoder's 0-d noise (quirk Q2); `z`:
     [B, z_dim] standard normal latents, or None when the batch carries
-    them (`host_z`)."""
+    them (`host_z`); `alpha_eval`: the `reference_metrics` penalties'
+    blend weights, keyed as `alpha` (JAX's fold_in(rng, 16 + i))."""
     alpha: Dict[str, torch.Tensor]
     eps: torch.Tensor
     z: Optional[torch.Tensor] = None
+    alpha_eval: Optional[Dict[str, torch.Tensor]] = None
 
 
 def make_draws(config: Config, batch: int, generator: torch.Generator,
@@ -70,37 +87,30 @@ def make_draws(config: Config, batch: int, generator: torch.Generator,
     """Draw one step's `Draws` from `generator` (on `device`). In bfloat16
     the blend weights are multiples of 2^-7 in [0, 1), the values
     `jax.random.uniform` draws in bfloat16 (losses.py:102), so that no
-    float32 draw rounds up to 1."""
-    if config.dtype == 'bfloat16':
-        alpha = {name: torch.randint(0, 2 ** 7, (batch,), generator=generator,
-                                     device=device) / 2.0 ** 7
-                 for name in CRITICS}
-    else:
-        alpha = {name: torch.rand(batch, generator=generator, device=device)
-                 for name in CRITICS}
+    float32 draw rounds up to 1. The `reference_metrics` blend weights are
+    drawn last, so that the other draws do not depend on the option."""
+    def blends():
+        if config.dtype == 'bfloat16':
+            return {name: torch.randint(0, 2 ** 7, (batch,),
+                                        generator=generator,
+                                        device=device) / 2.0 ** 7
+                    for name in CRITICS}
+        return {name: torch.rand(batch, generator=generator, device=device)
+                for name in CRITICS}
+
+    alpha = blends()
     eps = torch.randn((), generator=generator, device=device)
     z = (None if config.host_z else
          torch.randn(batch, config.z_dim, generator=generator,
                      device=device))
-    return Draws(alpha=alpha, eps=eps, z=z)
-
-
-def _waiting(config: Config):
-    waiting = []
-    if config.update_mode != 'faithful':
-        waiting.append(f"update_mode={config.update_mode!r}")
-    if config.reference_metrics:
-        waiting.append('reference_metrics')
-    if config.update_sn:
-        waiting.append('update_sn')
-    if waiting:
-        raise NotImplementedError(
-            f'{", ".join(waiting)}: not ported yet (the port trains '
-            "update_mode='faithful' with frozen spectral norms)")
+    return Draws(alpha=alpha, eps=eps, z=z,
+                 alpha_eval=blends() if config.reference_metrics else None)
 
 
 def make_train_step(nets: Networks, config: Config):
-    _waiting(config)
+    if config.update_mode not in ('faithful', 'fast'):
+        raise ValueError(f'update_mode {config.update_mode!r}: faithful or '
+                         'fast')
     compute_dtype = COMPUTE_DTYPES[config.dtype]
     exact_f32()
     opt = RMSProp(config.learning_rate)
@@ -126,14 +136,14 @@ def make_train_step(nets: Networks, config: Config):
                        [state.slots[g][n] for n in qual])
             grads = grads[len(ps):]
 
-    def critic_loss(name, fake, real, alpha):
+    def critic_loss(name, fake, real, alpha, create_graph=True):
         def d(x):
             return nets.discriminate(name, x)
         _, real_logit = d(real)
         _, fake_logit = d(fake)
         loss = L.discriminator_ganloss(fake_logit, real_logit)
         return loss + L.gradient_penalty(d, fake, real, alpha,
-                                         config.lambda_gp)
+                                         config.lambda_gp, create_graph)
 
     def g_losses(z_in, labels):
         """edge_gloss(G1) + image_gloss(G2) (models/edgegan.py:314-332),
@@ -222,20 +232,47 @@ def make_train_step(nets: Networks, config: Config):
             update(state, ['d2'], loss_d_ac)
             metrics['loss_d_ac'] = loss_d_ac
 
-        # group 5: the generators (first update, quirk Q5)
+            if config.update_sn:
+                advance_spectral_norms(nets.D2)
+
+        # group 5 (fast: the only generator update)
         update_generators(state, z_in, labels, metrics)
 
-        # group 6: the encoder on the new edge generator's output (G1 only:
-        # the JAX step's compiler drops the unused G2 branch here)
-        with torch.no_grad():
-            edge_fake2 = nets.G1(z_in)
-        z_recon, _, _ = nets.encode(edge_fake2, draws.eps)
+        # group 6: the encoder. Faithful: on the new edge generator's output
+        # (G1 only: the JAX step's compiler drops the unused G2 branch);
+        # fast: on the step-start fake the critics saw.
+        if config.update_mode == 'faithful':
+            with torch.no_grad():
+                encoder_input = nets.G1(z_in)
+        else:
+            encoder_input = edge_fake
+        z_recon, _, _ = nets.encode(encoder_input, draws.eps)
         zl_loss = L.l1loss(z_lat, z_recon, config.stage1_zl_loss)
         update(state, ['e'], zl_loss)
         metrics['zl_loss'] = zl_loss
 
-        # group 7: the generators again, same slots
-        update_generators(state, z_in, labels, metrics)
+        if config.update_mode == 'faithful':
+            # group 7: the generators again, same slots
+            update_generators(state, z_in, labels, metrics)
+
+        if config.reference_metrics:
+            # every reported loss but loss_d_ac and zl_loss again, on the
+            # post-step weights (models/edgegan.py:464-486)
+            with torch.no_grad():
+                edge_f, image_f = nets.generate(z_in)
+            evals = {'D': (torch.cat([edge_f, image_f], dim=3), x)}
+            if config.use_image_discriminator:
+                evals['D_patch2'] = (resize(image_f, image_size),
+                                     pairs['D_patch2'][1])
+            if config.use_edge_discriminator:
+                evals['D_patch3'] = (resize(edge_f, edge_size),
+                                     pairs['D_patch3'][1])
+            for name, (fake, real) in evals.items():
+                metrics[CRITICS[name][1]] = critic_loss(
+                    name, fake, real, draws.alpha_eval[name],
+                    create_graph=False).detach()
+            with torch.no_grad():
+                metrics.update(g_losses(z_in, labels)[1])
 
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}

@@ -1,12 +1,13 @@
 """Host-side image I/O and transforms for the PNG route (numpy + PIL).
 
-A copy of the JAX package's utils/images.py:22-96, which matches the
+A copy of the JAX package's utils/images.py:22-136, which matches the
 reference's scipy.misc behaviour: `imresize` on a float array first
 stretches the array's own [min, max] onto [0, 255] (`bytescale`), and
-saving stretches again.
+saving (`imsave`, `save_images`) stretches again.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -81,3 +82,33 @@ def get_image(path: str, input_height: int, input_width: int,
     """utils.py:41-50: read, crop/resize, scale to [-1, 1]."""
     return transform(imread(path, grayscale), input_height, input_width,
                      resize_height, resize_width, crop)
+
+
+def merge(images: np.ndarray, size) -> np.ndarray:
+    """Grid compositor (utils.py:67-86) for colour images: [N, h, w, 3 or
+    4] -> one [size[0] * h, size[1] * w, c] sheet."""
+    _, h, w, c = images.shape
+    if c not in (3, 4):
+        raise ValueError('merge(images, size): images must be HxWx3/4')
+    img = np.zeros((h * size[0], w * size[1], c))
+    for idx, image in enumerate(images):
+        i, j = idx % size[1], idx // size[1]
+        img[j * h:j * h + h, i * w:i * w + w, :] = image
+    return img
+
+
+def imsave(images: np.ndarray, size, path: str):
+    """scipy.misc.imsave (utils.py:133-135): the sheet stretched onto
+    [0, 255] by `bytescale`, then written by PIL."""
+    data = bytescale(np.squeeze(merge(images, size)))
+    os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
+    Image.fromarray(data).save(path)
+
+
+def save_images(images: np.ndarray, size, image_path: str):
+    """utils.py:53-54: [-1, 1] images -> one PNG sheet."""
+    return imsave(inverse_transform(images), size, image_path)
+
+
+def makedirs(path: str):
+    os.makedirs(path, exist_ok=True)

@@ -422,14 +422,15 @@ def test_library_refuses_impossible_variant_on_card(cuda):
 
 
 def test_port_imports_no_jax():
-    """Every module of edgegan_torch, the training path's named first,
-    and chip_smoke.py, import without JAX or the JAX package (checked in
-    a fresh interpreter)."""
+    """Every module of edgegan_torch, the training, test and serving
+    paths' named first, and chip_smoke.py, import without JAX or the JAX
+    package (checked in a fresh interpreter)."""
     code = (
         'import importlib, pkgutil, runpy, sys\n'
         'import edgegan_torch\n'
         "for name in ('cli.train', 'train.step', 'checkpoint', "
-        "'data.dataset', 'data.loader', 'losses'):\n"
+        "'data.dataset', 'data.loader', 'losses', 'cli.test', 'serve', "
+        "'utils.metrics_io', 'utils.images'):\n"
         "    importlib.import_module('edgegan_torch.' + name)\n"
         'for m in pkgutil.walk_packages(edgegan_torch.__path__, '
         "'edgegan_torch.'):\n"

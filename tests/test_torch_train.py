@@ -90,24 +90,30 @@ def _flat(tree):
     return np.concatenate([np.ravel(a) for a in jax.tree.leaves(tree)])
 
 
-def jax_draws(encode, params, aux, rng, dtype=jnp.float32):
+def jax_draws(encode, params, aux, rng, dtype=jnp.float32,
+              evals: bool = False):
     """The JAX step's draws for `rng` (train/step.py:125-126): each
     critic's alpha, drawn in the step's `dtype` as losses.py:102 draws it
     (held here in float32, exactly), and the encoder's scalar eps (drawn
     in float32 in either dtype), recovered from `encode` (the JAX
     encoder) as (z - mu)/exp(log_sigma) at the entry where that is best
-    conditioned."""
+    conditioned. With `evals`, also the `reference_metrics` penalties'
+    alphas, from `fold_in(rng, 16 + i)` (train/step.py:271-272)."""
     b = TINY['batch_size']
-    alpha = {name: torch.from_numpy(np.asarray(jax.random.uniform(
-        jax.random.fold_in(rng, i), (b, 1, 1, 1), dtype)).astype(
-            np.float32).reshape(b))
-        for i, name in enumerate(CRITICS)}
+
+    def alphas(first):
+        return {name: torch.from_numpy(np.asarray(jax.random.uniform(
+            jax.random.fold_in(rng, first + i), (b, 1, 1, 1), dtype)).astype(
+                np.float32).reshape(b))
+            for i, name in enumerate(CRITICS)}
+
     half = jnp.zeros((b, TINY['output_height'], TINY['output_width'] // 2, 3))
     z, mu, ls = encode(params, aux, half, jax.random.fold_in(rng, 3))
     z, mu, ls = (np.asarray(a, np.float64) for a in (z, mu, ls))
     i = np.unravel_index(np.argmax(np.abs(z - mu)), z.shape)
     eps = (z[i] - mu[i]) / np.exp(ls[i])
-    return Draws(alpha=alpha, eps=torch.tensor(eps, dtype=torch.float32))
+    return Draws(alpha=alphas(0), eps=torch.tensor(eps, dtype=torch.float32),
+                 alpha_eval=alphas(16) if evals else None)
 
 
 @pytest.fixture(scope='module')
@@ -321,37 +327,48 @@ def test_bf16_step_launches_every_kernel(bf16_runs):
         'mru_gate_blend': 12, 'mru_gate_bwd': 12}
 
 
-def test_launches_per_step_and_waiting_options(monkeypatch):
+def test_launches_per_step_and_step_options(monkeypatch):
     """One step calls K1 21 times (7 generator forwards: the encoder's
     input comes from G1 alone) and K2 12 times (2 updates x 2 generators x
     3 blocks), counted by a spy on the CPU dispatch, here in the
     single-class configuration (no classifier, latents drawn for the
-    step); the options that are not ported yet raise, naming themselves."""
+    step). Each of the step's options builds and runs a step alone, with
+    finite metrics: `update_mode='fast'` calls K1 12 and K2 6 times (the
+    critics' fakes and one generator update; the encoder takes the
+    step-start fake), `reference_metrics` adds 12 calls of K1 and no K2
+    (a fresh generator forward and the generators' losses, evaluated
+    without a gradient), and `update_sn` leaves the launches as they are
+    (here without a classifier, whose `u` it would advance)."""
     calls = []
     fwd, bwd = kernels._forward, kernels.instance_norm_act_bwd
     monkeypatch.setattr(kernels, '_forward',
                         lambda *a: calls.append('K1') or fwd(*a))
     monkeypatch.setattr(kernels, 'instance_norm_act_bwd',
                         lambda *a: calls.append('K2') or bwd(*a))
-    cfg = Config(multiclasses=False, **TINY).derive('train')
-    params, aux = bridge.random_jax_params(cfg, 1, gf_dim=8, critics=True,
-                                           df_dim=8)
-    nets = bridge.load_jax_params(
-        Networks(cfg, gf_dim=8, df_dim=8, critics=True), params, aux)
-    assert 'D2' not in nets.names
-    state = create_train_state(nets)
-    images, z = make_batch(0)
-    draws = cli_draws(cfg)
-    state, metrics = make_train_step(nets, cfg)(
-        state, torch.from_numpy(images), torch.from_numpy(z[:, :0]), draws)
-    assert calls.count('K1') == 21 and calls.count('K2') == 12
-    assert state.step == 1 and 'loss_d_ac' not in metrics
-    assert len(metrics) == 10 and float(metrics['loss_g_ac']) == 0
-    for kw, name in ((dict(update_mode='fast'), 'update_mode'),
-                     (dict(reference_metrics=True), 'reference_metrics'),
-                     (dict(update_sn=True), 'update_sn')):
-        with pytest.raises(NotImplementedError, match=name):
-            make_train_step(nets, Config(**TINY, **kw).derive('train'))
+    for kw, k1, k2 in ((dict(), 21, 12), (dict(update_mode='fast'), 12, 6),
+                       (dict(reference_metrics=True), 33, 12),
+                       (dict(update_sn=True), 21, 12)):
+        cfg = Config(multiclasses=False, **TINY, **kw).derive('train')
+        params, aux = bridge.random_jax_params(cfg, 1, gf_dim=8,
+                                               critics=True, df_dim=8)
+        nets = bridge.load_jax_params(
+            Networks(cfg, gf_dim=8, df_dim=8, critics=True), params, aux)
+        assert 'D2' not in nets.names
+        state = create_train_state(nets)
+        images, z = make_batch(0)
+        draws = cli_draws(cfg)
+        assert (draws.alpha_eval is not None) == cfg.reference_metrics
+        calls.clear()
+        state, metrics = make_train_step(nets, cfg)(
+            state, torch.from_numpy(images), torch.from_numpy(z[:, :0]),
+            draws)
+        assert (calls.count('K1'), calls.count('K2')) == (k1, k2), kw
+        assert state.step == 1 and 'loss_d_ac' not in metrics
+        assert len(metrics) == 10 and float(metrics['loss_g_ac']) == 0
+        assert all(math.isfinite(float(v)) for v in metrics.values()), kw
+    with pytest.raises(ValueError, match='update_mode'):
+        make_train_step(nets, Config(update_mode='other', **TINY).derive(
+            'train'))
 
 
 def cli_draws(cfg):
