@@ -95,7 +95,25 @@ the package is missing, and on any failed check.
    (`expected_launches`: faithful K1 21, K2 12, K5 42, K3 12, K4 12;
    fast K1 12, K2 6, K5 28, K3 8, K4 8; K5, K3 and K4 with the switches
    on only).
-11. Prints one JSON line describing every kernel, then
+11. Variants phase: the resnet generator, the resnet critics, the convnet
+   encoder and batch norm inside G's, D's and E's blocks, each alone at
+   full width: one step at batch 4 on the card against the CPU step
+   (within 3x the step's own sensitivity, measured on both devices), the
+   faithful float32 step at batch 64 timed (CUDA events over 5 steps
+   after a warm-up, peak memory) with its K1/K2 launches per variant as
+   `expected_launches` plans them. For the convnet encoder, K1 and K2 on
+   its six normed blocks' planes at batch 64 (the 1x1 and, in bfloat16,
+   2x2 planes in the multi-pass kernel) held to their plain versions and
+   timed per call, then 2 CLI steps, a resume and one `cli.test` forward
+   from the checkpoint (K1 12 launches).
+12. Hires phase: 128x256 pairs (BASELINE config 5) at batch 64, faithful,
+   both switches on: 2 CLI steps in float32 on synthetic pairs (launches
+   as planned: g_dconv_3's 64x64 planes and MRU unit 1's 128x128 gate in
+   the multi-pass kernels), the step timed in float32 and bfloat16 with
+   peak memory, and K1/K2 at [64, 64, 64, 64] and K3/K4 at [64, 8, 128,
+   128] held to their plain versions (two runs bitwise equal) and timed
+   per call beside their bounds.
+13. Prints one JSON line describing every kernel, then
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 from __future__ import annotations
@@ -146,15 +164,19 @@ GATE_SHAPES = [(8, 64, 64), (128, 32, 32), (256, 16, 16), (512, 8, 8)]
 CLASSIFIER_PASSES = 3   # per step: group 4 and both generator updates
 K5_PER_STEP = 14 * CLASSIFIER_PASSES
 K3_PER_STEP = K4_PER_STEP = 4 * CLASSIFIER_PASSES
-# per step of each kind: K1 and K2 launches, classifier forwards (K3: 4
-# each) and backwards (K4: 4, K5: 14 each). The fast step runs one
-# generator update and gives the encoder the step-start fake;
-# reference_metrics adds a generator forward and the generators' losses
-# (K1 12, one classifier forward) without a gradient; update_sn runs no
-# forward.
-STEP_KINDS = {'faithful': (K1_PER_STEP, K2_PER_STEP, 3, 3),
-              'fast': (12, 6, 2, 2),
-              'fast, reference_metrics, update_sn': (24, 6, 3, 2)}
+# per step of each kind: generator forwards and backwards (K1 and K2 on
+# each instance-normed DeconvBlock of the convnet generator), encoder
+# forwards and backwards (K1 and K2 on each instance-normed block of the
+# convnet encoder; the encoder's update), classifier forwards (K3: 4 each)
+# and backwards (K4: 4, K5: 14 each). The faithful step: the critics'
+# fakes, two updates of both generators and G1 alone for the encoder's
+# input. The fast step runs one generator update and gives the encoder
+# the step-start fake; reference_metrics adds a generator forward and the
+# generators' losses (one classifier forward) without a gradient;
+# update_sn runs no forward.
+STEP_KINDS = {'faithful': (7, 4, 1, 1, 3, 3),
+              'fast': (4, 2, 1, 1, 2, 2),
+              'fast, reference_metrics, update_sn': (8, 2, 1, 1, 3, 2)}
 # float32 operations per element: K5 mul, 2 compares, select, fma, mul,
 # mul, add; K3 min, max, sub, div, mul, add; K4 min, max, then sub, div,
 # mul, mul, sub, 2 mul-adds, add, 2 compares, 2 adds, then mul, div,
@@ -733,38 +755,100 @@ def k5_phase(card: str):
     return max_err, dleak_err, per_step
 
 
-def gate_split(dtype):
+def _halvings(n: int, times: int):
+    """n, ceil(n/2), ... (`times` halvings): the sizes down a chain of
+    stride-2 layers."""
+    out = [n]
+    for _ in range(times):
+        out.append(-(-out[-1] // 2))
+    return out
+
+
+def in_planes(config):
+    """(generator planes, encoder planes): the (C, H, W) of each plane set
+    that K1 (and K2) normalise in one forward of one generator and of the
+    encoder of `config`: the convnet generator's three instance-normed
+    DeconvBlocks (g_dconv_1..3) and the convnet encoder's six (seven at
+    image size 256) instance-normed ConvBlocks; none in the resnet
+    variants (their norms take the plain path) or with batch norm. At the
+    default 64x128 pairs: G 256x8x8, 128x16x16, 64x32x32; E 128x16x16,
+    256x8x8, 512x4x4, 512x2x2, 512x1x1, 512x1x1."""
+    h, w = config.output_height, config.output_width // 2
+    gen, enc = [], []
+    if not config.if_resnet_g and config.G_norm == 'instance':
+        hs, ws = _halvings(h, 4), _halvings(w, 4)
+        gen = [(512 // 2 ** i, hs[4 - i], ws[4 - i]) for i in range(1, 4)]
+    if not config.if_resnet_e and config.E_norm == 'instance':
+        filters = [64, 128, 256, 512, 512, 512, 512] + (
+            [512] if config.input_height == 256 else [])
+        hs, ws = _halvings(h, len(filters)), _halvings(w, len(filters))
+        enc = [(n, hs[i + 1], ws[i + 1]) for i, n in enumerate(filters)][1:]
+    return gen, enc
+
+
+def gate_shapes(config):
+    """The (C, H, W) of the classifier's four MRU gates on the photo half
+    of `config`: unit k's hidden depth at the half's size / 2^(k-1)
+    (GATE_SHAPES at the default 64x128 pairs)."""
+    h, w = config.output_height, config.output_width // 2
+    return [(c, h >> k, w >> k) for k, c in enumerate((8, 128, 256, 512))]
+
+
+def gate_split(dtype, config):
     """Calls per classifier pass of K3 (and of K4) in each variant: where
-    `gate_plan` sends the four gates in `dtype`."""
+    `gate_plan` sends the four gates of `config` in `dtype`."""
     from edgegan_torch.ops import kernels
     counts = dict.fromkeys(kernels.GATE_VARIANTS, 0)
-    for _, h, w in GATE_SHAPES:
+    for _, h, w in gate_shapes(config):
         counts[kernels.gate_plan(h * w, dtype, 0)[0]] += 1
     return counts
 
 
-def expected_launches(kind: str, dtype, switches: bool, steps: float = 1):
+def expected_launches(kind: str, dtype, switches: bool, steps: float = 1,
+                      config=None):
     """`kernels.LAUNCHES` after `steps` training steps of `kind`
-    (STEP_KINDS) in `dtype`: every K1 and K2 call of the default
-    configuration in a lane group, K3's and K4's in the variants where
-    `gate_plan` sends the four gates, K5 and K3/K4 only with the switches
-    on."""
+    (STEP_KINDS) in `dtype` of `config` (the default configuration when
+    None): K1 and K2 on each plane set of `in_planes` in the variant
+    `instance_norm_plan` picks for it (lane groups at the default sizes;
+    multi-pass for ragged planes, such as the encoder's 1x1, and beyond
+    1024 float32 / 2048 bfloat16 elements, such as the hires generator's
+    64x64), K3's and K4's in the variants where `gate_plan` sends the four
+    gates, K5 and K3/K4 only with the switches on."""
+    from edgegan_torch.core.config import Config
     from edgegan_torch.ops import kernels
-    k1, k2, forwards, backwards = STEP_KINDS[kind]
+    config = config or Config().derive('train')
+    g_fwd, g_bwd, e_fwd, e_bwd, forwards, backwards = STEP_KINDS[kind]
+    gen, enc = in_planes(config)
     on = int(switches)
-    want = {'instance_norm_act': k1 * steps,
-            'instance_norm_act_bwd': k2 * steps,
-            'prelu_bwd': on * 14 * backwards * steps,
-            'mru_gate_blend': on * 4 * forwards * steps,
-            'mru_gate_bwd': on * 4 * backwards * steps}
-    for name in ('instance_norm_act', 'instance_norm_act_bwd'):
-        for variant in kernels.IN_VARIANTS:
-            want[f'{name}.{variant}'] = (want[name] if variant ==
-                                         'lane_group' else 0)
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    for name, per_gen, per_enc in (('instance_norm_act', g_fwd, e_fwd),
+                                   ('instance_norm_act_bwd', g_bwd, e_bwd)):
+        for planes, calls in ((gen, per_gen), (enc, per_enc)):
+            for _, h, w in planes:
+                variant = kernels.instance_norm_plan(h * w, dtype, 0)[0]
+                want[name] += calls * steps
+                want[f'{name}.{variant}'] += calls * steps
+    want.update({'prelu_bwd': on * 14 * backwards * steps,
+                 'mru_gate_blend': on * 4 * forwards * steps,
+                 'mru_gate_bwd': on * 4 * backwards * steps})
     for name, passes in (('mru_gate_blend', forwards),
                          ('mru_gate_bwd', backwards)):
-        for variant, calls in gate_split(dtype).items():
+        for variant, calls in gate_split(dtype, config).items():
             want[f'{name}.{variant}'] = on * passes * calls * steps
+    return want
+
+
+def forward_launches(config, dtype, forwards: int = 1):
+    """`kernels.LAUNCHES` after `forwards` test or serving forwards
+    (encoder, G1 and G2) of `config`: K1 on the encoder's and both
+    generators' plane sets of `in_planes`."""
+    from edgegan_torch.ops import kernels
+    gen, enc = in_planes(config)
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    for _, h, w in gen + gen + enc:
+        variant = kernels.instance_norm_plan(h * w, dtype, 0)[0]
+        want['instance_norm_act'] += forwards
+        want[f'instance_norm_act.{variant}'] += forwards
     return want
 
 
@@ -1497,6 +1581,68 @@ def _one_step(config, params, aux, device, images, z, draws):
     return {k: float(v) for k, v in metrics.items()}, out
 
 
+def _step_case(config, seed: int = 1):
+    """One step's inputs for `_one_step` at `config`'s batch: weights
+    from `seed`, images, class column and draws from a generator seeded
+    2, and a function that moves an array by about one part in 1e6."""
+    import numpy as np
+
+    from edgegan_torch import bridge
+    params, aux = bridge.random_jax_params(config, seed, critics=True)
+    rng = np.random.RandomState(2)
+    b, h, w = config.batch_size, config.output_height, config.output_width
+    images = rng.uniform(-1, 1, (b, h, w, 3)).astype(np.float32)
+    z = rng.randint(0, config.num_classes, (b, 1)).astype(np.float32)
+    draws = dict(alpha={n: rng.rand(b).astype(np.float32)
+                        for n in ('D', 'D_patch2', 'D_patch3')},
+                 eps=np.float32(rng.randn()),
+                 z=rng.randn(b, config.z_dim).astype(np.float32))
+
+    def jitter(a):
+        return (a * (1 + 1e-6 * rng.randn(*a.shape))).astype(np.float32)
+    return params, aux, images, z, draws, jitter
+
+
+def _held_to_cpu(label, got, cpu, jittered, params):
+    """Prints and checks one card step `got` = (metrics, params) against
+    the CPU step `cpu`: each metric within 3x the step's own sensitivity
+    + 1e-4 of max(1, |value|), each network's update within 3x it + 1e-3
+    of its norm. The sensitivity is the largest distance of a jittered
+    run from its own unjittered run, over `jittered`: ((run, base), ...).
+    Returns whether every difference is within its limit."""
+    import numpy as np
+
+    def flat(p, net):
+        return np.concatenate([a.ravel() for a in _leaves(p[net])])
+
+    ok = True
+    got_m, got_p = got
+    cpu_m, cpu_p = cpu
+    print(f' card step {label}:')
+    for k in sorted(cpu_m):
+        diff = abs(got_m[k] - cpu_m[k])
+        own = max(abs(run[0][k] - base[0][k]) for run, base in jittered)
+        limit = 3 * own + 1e-4 * max(1.0, abs(cpu_m[k]))
+        ok &= diff <= limit
+        print(f'  {k}: card {got_m[k]:.6g} cpu {cpu_m[k]:.6g}, diff '
+              f'{diff:.3g}, under 1e-6 input jitter {own:.3g}, limit '
+              f'{limit:.3g}')
+    for net in sorted(cpu_p):
+        start = np.concatenate([a.ravel() for a in _leaves(params[net])])
+        upd = {'card': flat(got_p, net) - start,
+               'cpu': flat(cpu_p, net) - start}
+        norm = np.linalg.norm(upd['cpu'])
+        diff = np.linalg.norm(upd['card'] - upd['cpu'])
+        own = max(np.linalg.norm(flat(run[1], net) - flat(base[1], net))
+                  for run, base in jittered)
+        limit = 3 * own + 1e-3 * norm
+        ok &= diff <= limit
+        print(f'  {net} update: |cpu| {norm:.4g}, |card - cpu| {diff:.3g} '
+              f'(max abs {np.abs(upd["card"] - upd["cpu"]).max():.3g}), '
+              f'jittered run vs its own {own:.3g}, limit {limit:.3g}')
+    return ok
+
+
 def card_vs_cpu_phase(card: str):
     """One full-width step at batch 4 on the card and on the CPU from the
     same weights and draws. The GAN's step amplifies rounding (the gradient
@@ -1507,37 +1653,23 @@ def card_vs_cpu_phase(card: str):
     runs twice, with the classifier switches off and on (K5, K3 and K4,
     which must launch 42, 12 and 12 times), each against the same CPU
     step with the switches off."""
-    import numpy as np
-
-    from edgegan_torch import bridge
     from edgegan_torch.core.config import Config
     from edgegan_torch.ops import kernels
 
     config = Config(batch_size=4).derive('train')
-    params, aux = bridge.random_jax_params(config, 1, critics=True)
-    rng = np.random.RandomState(2)
-    b, h, w = config.batch_size, config.output_height, config.output_width
-    images = rng.uniform(-1, 1, (b, h, w, 3)).astype(np.float32)
-    z = rng.randint(0, config.num_classes, (b, 1)).astype(np.float32)
-    draws = dict(alpha={n: rng.rand(b).astype(np.float32)
-                        for n in ('D', 'D_patch2', 'D_patch3')},
-                 eps=np.float32(rng.randn()),
-                 z=rng.randn(b, config.z_dim).astype(np.float32))
-    def jitter(a):
-        return (a * (1 + 1e-6 * rng.randn(*a.shape))).astype(np.float32)
+    params, aux, images, z, draws, jitter = _step_case(config)
     t0 = time.perf_counter()
     with classifier_switches(False):
-        card_m, card_p = _one_step(config, params, aux, 'cuda', images, z,
-                                   draws)
+        card_run = _one_step(config, params, aux, 'cuda', images, z, draws)
     for k in kernels.LAUNCHES:
         kernels.LAUNCHES[k] = 0
     with classifier_switches(True):
-        on_m, on_p = _one_step(config, params, aux, 'cuda', images, z, draws)
+        on_run = _one_step(config, params, aux, 'cuda', images, z, draws)
     counts = dict(kernels.LAUNCHES)
     with classifier_switches(False):
-        cpu_m, cpu_p = _one_step(config, params, aux, 'cpu', images, z, draws)
-        jit_m, jit_p = _one_step(config, params, aux, 'cpu', jitter(images),
-                                 z, dict(draws, z=jitter(draws['z'])))
+        cpu_run = _one_step(config, params, aux, 'cpu', images, z, draws)
+        jit_run = _one_step(config, params, aux, 'cpu', jitter(images), z,
+                            dict(draws, z=jitter(draws['z'])))
     print(f'card vs CPU: 4 steps in {time.perf_counter() - t0:.1f} s '
           f'[{card}]')
     check((counts['prelu_bwd'], counts['mru_gate_blend'],
@@ -1545,30 +1677,10 @@ def card_vs_cpu_phase(card: str):
                                        K4_PER_STEP),
           f'the switched card step launched {counts}')
     ok = True
-    for label, got_m, got_p in (('switches off', card_m, card_p),
-                                ('switches on', on_m, on_p)):
-        print(f' card step with the classifier {label}:')
-        for k in sorted(cpu_m):
-            diff, own = abs(got_m[k] - cpu_m[k]), abs(jit_m[k] - cpu_m[k])
-            limit = 3 * own + 1e-4 * max(1.0, abs(cpu_m[k]))
-            ok &= diff <= limit
-            print(f'  {k}: card {got_m[k]:.6g} cpu {cpu_m[k]:.6g}, diff '
-                  f'{diff:.3g}, CPU under 1e-6 input jitter {own:.3g}, '
-                  f'limit {limit:.3g}')
-        for net in sorted(cpu_p):
-            start = np.concatenate([a.ravel() for a in _leaves(params[net])])
-            upd = {name: np.concatenate([a.ravel() for a in _leaves(p[net])])
-                   - start for name, p in (('card', got_p), ('cpu', cpu_p),
-                                           ('jit', jit_p))}
-            norm = np.linalg.norm(upd['cpu'])
-            diff = np.linalg.norm(upd['card'] - upd['cpu'])
-            own = np.linalg.norm(upd['jit'] - upd['cpu'])
-            limit = 3 * own + 1e-3 * norm
-            ok &= diff <= limit
-            print(f'  {net} update: |cpu| {norm:.4g}, |card - cpu| '
-                  f'{diff:.3g} (max abs '
-                  f'{np.abs(upd["card"] - upd["cpu"]).max():.3g}), '
-                  f'|cpu jittered - cpu| {own:.3g}, limit {limit:.3g}')
+    for label, got in (('with the classifier switches off', card_run),
+                       ('with the classifier switches on', on_run)):
+        ok &= _held_to_cpu(label, got, cpu_run, [(jit_run, cpu_run)],
+                           params)
     check(ok, 'a card step differs from the CPU step beyond the limits')
 
 
@@ -1687,6 +1799,353 @@ def step_time_phase(card: str, update_mode: str = 'faithful'):
                       f'(profile, {label}) [{card}]')
             profiles[(dtype, switches)] = per_step
     return times, profiles
+
+
+# the variants phase: each architecture flag away from its default, alone
+# (batch norm in all three networks' blocks at once)
+VARIANTS = {'resnet G': dict(if_resnet_g=True),
+            'resnet D': dict(if_resnet_d=True),
+            'convnet E': dict(if_resnet_e=False),
+            'batch norm in G, D and E': dict(G_norm='batch', D_norm='batch',
+                                             E_norm='batch')}
+HIRES = dict(input_height=128, input_width=256, output_height=128,
+             output_width=256)
+TIMED_STEPS = 5
+
+
+def _flags(overrides):
+    """CLI flags for Config `overrides` (a False bool as --no<flag>)."""
+    out = []
+    for k, v in overrides.items():
+        out += ([f'--no{k}'] if v is False else [f'--{k}', str(v)])
+    return out
+
+
+def _timed_steps(config, switches: bool, seed: int = 3):
+    """`TIMED_STEPS` training steps of `config` at its batch on the card
+    after one warm-up step, on a staged batch: (CUDA-event ms per step,
+    peak device GiB, `kernels.LAUNCHES` over all TIMED_STEPS + 1 steps)."""
+    import numpy as np
+    import torch
+
+    from edgegan_torch import bridge
+    from edgegan_torch.ops import kernels
+    from edgegan_torch.train.networks import Networks
+    from edgegan_torch.train.state import create_train_state
+    from edgegan_torch.train.step import make_draws, make_train_step
+
+    rng = np.random.RandomState(seed)
+    b, h, w = config.batch_size, config.output_height, config.output_width
+    nets = bridge.load_jax_params(Networks(config, critics=True),
+                                  *bridge.random_jax_params(
+                                      config, 0, critics=True)).to('cuda')
+    state = create_train_state(nets)
+    step = make_train_step(nets, config)
+    images = torch.from_numpy(rng.uniform(-1, 1, (b, h, w, 3)).astype(
+        np.float32)).to('cuda', getattr(torch, config.dtype))
+    z = torch.from_numpy(rng.randint(0, config.num_classes, (b, 1)).astype(
+        np.float32)).cuda()
+    draws = make_draws(config, b, torch.Generator(device='cuda').manual_seed(
+        0), 'cuda')
+    with classifier_switches(switches):
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: step(state, images, z, draws), TIMED_STEPS,
+                     warmup=1)
+        counts = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del nets, state, step
+    torch.cuda.empty_cache()
+    return ms, peak, counts
+
+
+def _batch64_inputs(shape, dtype, seed: int):
+    """x and g of NCHW `shape` on the card in `dtype`, made on the CPU
+    from `seed`; plane (0, 0) of x constant (var == 0)."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=gen) * 2 + 0.5
+    x[0, 0] = 3.0
+    g = torch.randn(shape, generator=gen)
+    return x.to('cuda', dtype), g.to('cuda', dtype)
+
+
+def per_call_times(card: str, label: str, key: str, match: str, fn, args,
+                   tensors: int, ops_per_element: int, plain):
+    """One kernel's time per call on `args` (the first its output's
+    shape): device time from the profile of kernels named `match` (warm
+    and cold L2) and CUDA events, beside its bound (`tensors` tensors of
+    that shape moved once, `ops_per_element` float32 operations) and the
+    plain version's time (`plain()`). Prints and returns them."""
+    n, size = args[0].numel(), args[0].element_size()
+    warm, cold = device_us(fn, match, cold_copies(
+        lambda: tuple(t.clone() for t in args), tensors * n * size))
+    ms = cuda_ms(lambda: fn(*args), 20)
+    plain_ms = cuda_ms(plain, 5, warmup=1)
+    by_bytes, by_ops = bounds_ms(n, size, tensors, ops_per_element)
+    print(f'{label}: {key}: device {_us(warm)} warm / {_us(cold)} cold L2 '
+          f'(profile), {ms:.4f} ms (CUDA events), bound '
+          f'{max(by_bytes, by_ops):.4f} ms (bytes {by_bytes:.4f}, operations '
+          f'{by_ops:.4f}), plain {plain_ms:.4f} ms; held to plain, two runs '
+          f'bitwise equal [{card}]')
+    return dict(ms=ms, device_ms=_ms(warm), cold_ms=_ms(cold),
+                bound_ms=max(by_bytes, by_ops),
+                bound_by='bytes' if by_bytes >= by_ops else 'operations',
+                plain_ms=plain_ms)
+
+
+def in_planes_timed(card: str, label: str, shapes):
+    """K1 and K2 at batch 64 on each (C, H, W) of `shapes`, float32 and
+    bfloat16: held to their plain versions by `in_checks.check_kernels`
+    (TOL and K2_TOL, three activations, two runs bitwise equal, in the
+    variant `instance_norm_plan` picks, the plain versions within the
+    limits of float64), then timed per call with relu: device time from
+    the profile (warm and cold L2) and CUDA events, beside the bound and
+    the plain version's time. Returns ({'K1', 'K2'}: max abs error,
+    {'K1 float32 [64, C, H, W] variant': {...ms...}, ...})."""
+    import torch
+
+    from edgegan_torch.ops import in_checks, kernels
+    err = {'K1': 0.0, 'K2': 0.0}
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split('.')[-1]
+        for c, h, w in shapes:
+            shape = (64, c, h, w)
+            x, g = _batch64_inputs(shape, dtype, 11)
+            variant = kernels.instance_norm_plan(
+                h * w, dtype, x.data_ptr() | g.data_ptr())[0]
+            e1, e2 = in_checks.check_kernels(
+                x, g, TOL[dname], K2_TOL[dname], variant,
+                label=f'{label} {dname} {list(shape)}')
+            err['K1'], err['K2'] = max(err['K1'], e1), max(err['K2'], e2)
+            for kname, match, fn, args, tensors, ops, plain in (
+                    ('K1', 'instance_norm_act_fwd',
+                     lambda t: kernels.instance_norm_act(t, 'relu'), (x,), 2,
+                     K1_OPS_PER_ELEMENT,
+                     lambda: kernels.instance_norm_act_plain(x, 'relu')),
+                    ('K2', 'instance_norm_act_bwd',
+                     lambda t, u: kernels.instance_norm_act_bwd(t, u, 'relu'),
+                     (x, g), 3, K2_OPS_PER_ELEMENT,
+                     lambda: kernels.instance_norm_act_bwd_plain(x, g,
+                                                                 'relu'))):
+                key = f'{kname} {dname} {list(shape)} {variant} relu'
+                times[key] = per_call_times(card, label, key, match, fn,
+                                            args, tensors, ops, plain)
+    return err, times
+
+
+def variants_phase(card: str, tmp: str):
+    """Each model variant of VARIANTS at full width on the card: one step
+    at batch 4 against the port's CPU step from the same weights and
+    draws, each within 3x the step's own sensitivity, measured on both
+    devices (each step again on inputs moved by one part in 1e6); the
+    faithful step at batch 64 in float32 timed over TIMED_STEPS steps
+    after a warm-up (CUDA events, peak memory), its K1/K2 launches per
+    variant as `expected_launches` plans them. For the convnet encoder
+    also: K1 and K2 on its six normed blocks' planes at batch 64 (held and
+    timed, `in_planes_timed`; the 1x1 planes in the multi-pass kernel),
+    and the CLI path: 2 steps (a save at counter 2), a resume that takes
+    1 more, and `cli.test` on one test pair from the checkpoint (its K1
+    launches for one forward). Returns (launches by run, step times, K1/K2
+    per call, max errors)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from edgegan_torch import checkpoint as ckpt
+    from edgegan_torch.cli import test as test_cli
+    from edgegan_torch.cli import train as train_cli
+    from edgegan_torch.core.config import Config
+    from edgegan_torch.ops import kernels
+    from edgegan_torch.utils.metrics_io import (read_metrics,
+                                                read_resume_markers)
+
+    launches, steps, ok = {}, {}, True
+    for label, overrides in VARIANTS.items():
+        small = Config(batch_size=4, **overrides).derive('train')
+        params, aux, images, z, draws, jitter = _step_case(small)
+        jdraws = dict(draws, z=jitter(draws['z']))
+        jimages = jitter(images)
+        t0 = time.perf_counter()
+        runs = {dev: (_one_step(small, params, aux, dev, images, z, draws),
+                      _one_step(small, params, aux, dev, jimages, z, jdraws))
+                for dev in ('cuda', 'cpu')}
+        print(f'{label}: card vs CPU, 4 steps at batch 4 in '
+              f'{time.perf_counter() - t0:.1f} s [{card}]')
+        ok &= _held_to_cpu(f'{label} (batch 4)', runs['cuda'][0],
+                           runs['cpu'][0], [runs['cpu'][::-1],
+                                            runs['cuda'][::-1]], params)
+
+        config = Config(**overrides).derive('train')
+        ms, peak, counts = _timed_steps(config, False)
+        want = expected_launches('faithful', torch.float32, False,
+                                 TIMED_STEPS + 1, config)
+        check(counts == want, f'{label}: launches {counts} for '
+              f'{TIMED_STEPS + 1} steps, expected {want}')
+        launches[f'variant {label}'] = counts
+        steps[label] = dict(ms=ms, peak_gib=peak)
+        per_step = {k: v // (TIMED_STEPS + 1) for k, v in counts.items()
+                    if v and k.startswith('instance_norm')}
+        print(f'{label}: faithful step at batch {config.batch_size} float32 '
+              f'{ms:.3f} ms (CUDA events, {TIMED_STEPS} steps after 1), peak '
+              f'device memory {peak:.2f} GiB; K1/K2 launches per step '
+              f'{per_step} [{card}]')
+    check(ok, 'a variant card step differs from the CPU step beyond the '
+          'limits')
+
+    # the convnet encoder's planes, and its CLI path
+    econfig = Config(if_resnet_e=False).derive('train')
+    err, per_call = in_planes_timed(card, 'convnet E planes',
+                                    in_planes(econfig)[1])
+    b, h, w = econfig.batch_size, econfig.output_height, econfig.output_width
+    root = os.path.join(tmp, 'variants')
+    write_dataset(root, b, econfig.num_classes, h, w)
+    os.makedirs(os.path.join(root, 'ds', 'test', '0'))
+    shutil.copy(os.path.join(root, 'ds', 'train', '0', '0000.png'),
+                os.path.join(root, 'ds', 'test', '0', 'pair.png'))
+    valid = [os.path.join('0', 'pair.png')]
+    out = os.path.join(root, 'outputs')
+    base = ['--dataroot', root, '--dataset', 'ds', '--outputsroot', out,
+            '--name', 'convnet_e'] + _flags(VARIANTS['convnet E'])
+    log = os.path.join(out, 'convnet_e', 'logs', 'metrics.jsonl')
+    for run, epochs, n in (('convnet E train', 2, 2),
+                           ('convnet E resumed', 1, 1)):
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        train_cli.main(base + ['--epoch', str(epochs),
+                               '--save_checkpoint_frequency', '3'])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[run] = dict(kernels.LAUNCHES)
+        want = expected_launches('faithful', torch.float32, False, n,
+                                 econfig)
+        check(launches[run] == want, f'{run}: launches {launches[run]}, '
+              f'expected {want}')
+        print(f'{run}: {n} steps of batch {b} in {wall:.3f} s with start-up '
+              f'(host clock) [{card}]')
+    rows = read_metrics(log)   # step 3: the resumed run's line
+    check(read_resume_markers(log) == [2]
+          and [r['step'] for r in rows] == [2, 3]
+          and ckpt.steps(os.path.join(out, 'convnet_e', 'checkpoints'))
+          == [2], f'convnet E CLI: steps {[r["step"] for r in rows]}, '
+          f'resumes {read_resume_markers(log)}')
+    check(all(math.isfinite(v) for r in rows for v in r.values()),
+          f'convnet E CLI: metrics {rows}')
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    test_cli.main(base)
+    launches['convnet E test'] = dict(kernels.LAUNCHES)
+    want = forward_launches(Config(if_resnet_e=False).derive('test'),
+                            torch.float32)
+    check(launches['convnet E test'] == want, f'convnet E test: launches '
+          f'{launches["convnet E test"]}, expected {want}')
+    test_dir = os.path.join(out, 'convnet_e', 'test_output', 'ds')
+    got = sorted(os.path.relpath(os.path.join(d, f), test_dir)
+                 for d, _, fs in os.walk(test_dir) for f in fs)
+    check(got == valid, f'convnet E test wrote {got}, expected {valid}')
+    print(f'convnet E: cli.test from checkpoint 2 wrote {got}; K1 '
+          f'{want["instance_norm_act"]} launches for one forward '
+          f'({want["instance_norm_act.multi_pass"]} in the multi-pass '
+          f'kernel: the 1x1 planes) [{card}]')
+    return launches, steps, per_call, err
+
+
+def hires_phase(card: str, tmp: str):
+    """The hires configuration (HIRES: 128x128 halves, 128x256 pairs;
+    BASELINE config 5) at batch 64, faithful, both classifier switches on:
+    `cli.train` for 2 steps in float32 on synthetic 128x256 pairs (every
+    metric finite, launches as planned: g_dconv_3's 64x64 planes and MRU
+    unit 1's 128x128 gate in the multi-pass kernels); the step timed in
+    float32 and bfloat16 (CUDA events over TIMED_STEPS steps after a
+    warm-up, peak memory); K1/K2 on g_dconv_3's [64, 64, 64, 64] and
+    K3/K4 on unit 1's [64, 8, 128, 128] held to their plain versions
+    (two runs bitwise equal) and timed per call beside their bounds.
+    Returns (launches by run, step times, per-call times, max errors)."""
+    import math
+
+    import torch
+
+    from edgegan_torch.cli import train as train_cli
+    from edgegan_torch.core.config import Config
+    from edgegan_torch.ops import gate_checks, kernels
+    from edgegan_torch.utils.metrics_io import read_metrics
+
+    config = Config(**HIRES).derive('train')
+    b, h, w = config.batch_size, config.output_height, config.output_width
+    root = os.path.join(tmp, 'hires')
+    write_dataset(root, b, config.num_classes, h, w)
+    launches = {}
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    with classifier_switches(True):
+        train_cli.main(['--dataroot', root, '--dataset', 'ds',
+                        '--outputsroot', os.path.join(root, 'outputs'),
+                        '--name', 'hires', '--epoch', '2']
+                       + _flags(HIRES))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches['hires train float32, switches on'] = counts = dict(
+        kernels.LAUNCHES)
+    want = expected_launches('faithful', torch.float32, True, 2, config)
+    check(counts == want, f'hires CLI: launches {counts}, expected {want}')
+    rows = read_metrics(os.path.join(root, 'outputs', 'hires', 'logs',
+                                     'metrics.jsonl'))
+    check([r['step'] for r in rows] == [2, 3] and all(
+        math.isfinite(v) for r in rows for v in r.values()),
+        f'hires CLI metrics: {rows}')
+    print(f'hires CLI: 2 steps of batch {b} at {h}x{w} in {wall:.3f} s with '
+          f'start-up (host clock); per step K1 {want["instance_norm_act"] / 2:g}'
+          f' ({want["instance_norm_act.multi_pass"] / 2:g} multi-pass), K2 '
+          f'{want["instance_norm_act_bwd"] / 2:g} '
+          f'({want["instance_norm_act_bwd.multi_pass"] / 2:g} multi-pass), '
+          f'K5 {want["prelu_bwd"] / 2:g}, K3 {want["mru_gate_blend"] / 2:g} '
+          f'({want["mru_gate_blend.multi_pass"] / 2:g} multi-pass), K4 '
+          f'{want["mru_gate_bwd"] / 2:g} [{card}]')
+    print('  last metrics: ' + json.dumps(rows[-1]))
+
+    steps = {}
+    for dtype in ('float32', 'bfloat16'):
+        dconfig = Config(dtype=dtype, **HIRES).derive('train')
+        ms, peak, counts = _timed_steps(dconfig, True)
+        want = expected_launches('faithful', getattr(torch, dtype), True,
+                                 TIMED_STEPS + 1, dconfig)
+        check(counts == want, f'hires {dtype}: launches {counts}, expected '
+              f'{want}')
+        steps[dtype] = dict(ms=ms, peak_gib=peak)
+        print(f'hires faithful step at batch {b} {dtype}, switches on: '
+              f'{ms:.3f} ms (CUDA events, {TIMED_STEPS} steps after 1), peak '
+              f'device memory {peak:.2f} GiB [{card}]')
+
+    err, per_call = in_planes_timed(card, 'hires g_dconv_3', [(64, 64, 64)])
+    gate_err = {'K3': 0.0, 'K4': 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split('.')[-1]
+        shape = (64,) + gate_shapes(config)[0]
+        rg, ht, img, g = gate_checks.gate_inputs('cuda', shape, dtype, seed=12)
+        addr = rg.data_ptr() | ht.data_ptr() | img.data_ptr() | g.data_ptr()
+        variant = kernels.gate_plan(shape[2] * shape[3], dtype, addr)[0]
+        check(variant == 'multi_pass', f'unit 1 at hires: {variant}')
+        e3, e4 = gate_checks.check_gate(
+            rg, ht, img, g, TOL[dname], K2_TOL[dname], variant,
+            label=f'hires unit 1 {dname} {list(shape)}')
+        gate_err['K3'] = max(gate_err['K3'], e3)
+        gate_err['K4'] = max(gate_err['K4'], e4)
+        for kname, match, fn, args, tensors, ops, plain in (
+                ('K3', 'mru_gate_fwd', kernels.mru_gate_blend, (rg, ht, img),
+                 4, K3_OPS_PER_ELEMENT,
+                 lambda: kernels.mru_gate_blend_plain(rg, ht, img)),
+                ('K4', 'mru_gate_bwd', kernels.mru_gate_bwd, (rg, img, g), 5,
+                 K4_OPS_PER_ELEMENT,
+                 lambda: kernels.mru_gate_bwd_plain(rg, img, g))):
+            key = f'{kname} {dname} {list(shape)} {variant}'
+            per_call[key] = per_call_times(card, 'hires unit 1', key, match,
+                                           fn, args, tensors, ops, plain)
+    return launches, steps, per_call, {**err, **gate_err}
 
 
 def host_cost_phase(card: str):
@@ -1937,6 +2396,8 @@ def main() -> int:
         phase('card_vs_cpu', card_vs_cpu_phase, card)
         phase('step_time', step_time_phase, card)
         phase('step_time fast', step_time_phase, card, 'fast')
+        phase('variants', variants_phase, card, tmp)
+        phase('hires', hires_phase, card, tmp)
         phase('host_cost', host_cost_phase, card)
     if failed:
         print(f'chip_smoke: failed phases: {", ".join(failed)}',
@@ -1947,7 +2408,21 @@ def main() -> int:
     k2_err, k2_sums, k2_prev = results['K2']
     k5_err, dleak_err, k5_steps = results['K5']
     gate_err, gate_steps = results['K3/K4']
-    train_runs = {**results['train'], **results['lifecycle']}
+    v_launches, v_steps, v_per_call, v_err = results['variants']
+    h_launches, h_steps, h_per_call, h_err = results['hires']
+    train_runs = {**results['train'], **results['lifecycle'], **v_launches,
+                  **h_launches}
+
+    def per_call(kname):
+        """K1-K4's per-call times at this slice's new planes: the convnet
+        encoder's (K1/K2) and the hires configuration's multi-pass ones."""
+        return {
+            'convnet_encoder_planes': {k: v for k, v in v_per_call.items()
+                                       if k.startswith(kname)},
+            'hires_planes': {k: v for k, v in h_per_call.items()
+                             if k.startswith(kname)},
+            'max_abs_err_at_these_planes': max(
+                v_err.get(kname, 0.0), h_err[kname])}
     times, prof = results['step_time']
     fast_times, fast_prof = results['step_time fast']
 
@@ -1986,7 +2461,8 @@ def main() -> int:
             train_step_yardstick_ms={
                 d: K1_PER_STEP / 3 * k1_sums[(64, d)]['library_ms']
                 for d in ('float32', 'bfloat16')},
-            **in_extras('K1', k1_sums, k1_prev, results)),
+            **in_extras('K1', k1_sums, k1_prev, results),
+            new_planes_per_call=per_call('K1')),
         # one training step at batch 64 in float32: the three shapes in
         # each of 2 generator updates x (G1, G2)
         _kernel_entry(
@@ -2005,7 +2481,8 @@ def main() -> int:
                 f'{d}, switches {"on" if on else "off"}': p[
                     'instance_norm_act_bwd'] for (d, on), p in prof.items()},
             fast_step_device_ms=fast_device_ms('instance_norm_act_bwd'),
-            **in_extras('K2', k2_sums, k2_prev, results)),
+            **in_extras('K2', k2_sums, k2_prev, results),
+            new_planes_per_call=per_call('K2')),
         _kernel_entry(
             'prelu_bwd', 'edgegan_torch/csrc/prelu_bwd.cu',
             'edgegan_tpu/ops/pallas_kernels.py:247', k5_steps['bfloat16'], 1,
@@ -2034,7 +2511,8 @@ def main() -> int:
                 d: prof[(d, True)]['mru_gate_fwd']
                 for d in ('float32', 'bfloat16')},
             fast_step_device_ms=fast_device_ms('mru_gate_fwd', True),
-            **gate_extras('K3', gate_steps['K3'], results)),
+            **gate_extras('K3', gate_steps['K3'], results),
+            new_planes_per_call=per_call('K3')),
         _kernel_entry(
             'mru_gate_bwd', 'edgegan_torch/csrc/mru_gate.cu',
             'edgegan_tpu/ops/pallas_kernels.py:388',
@@ -2048,11 +2526,13 @@ def main() -> int:
                 d: prof[(d, True)]['mru_gate_bwd']
                 for d in ('float32', 'bfloat16')},
             fast_step_device_ms=fast_device_ms('mru_gate_bwd', True),
-            **gate_extras('K4', gate_steps['K4'], results)),
+            **gate_extras('K4', gate_steps['K4'], results),
+            new_planes_per_call=per_call('K4')),
     ], 'train_step_ms': {f'{d}, switches {"on" if on else "off"}': t[0]
                          for (d, on), t in times.items()},
         'fast_step_ms': {f'{d}, switches {"on" if on else "off"}': t[0]
                          for (d, on), t in fast_times.items()},
+        'variant_step_ms': v_steps, 'hires_step_ms': h_steps,
         'host_us_per_call': results['host_cost']}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

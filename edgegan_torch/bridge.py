@@ -13,8 +13,10 @@ differ:
   deconv kernel   [k,k,out,in]       -> [in,out,k,k] (conv_transpose2d)
   dense matrix    [in,out]           -> [out,in] (F.linear)
                   (Linear `Matrix`, Mlp `w`, SNDense `weights`)
-  batch norm      `<name>_gamma` / `<name>_beta` params, and
-                  `<name>_mean` / `<name>_var` in `batch_stats`
+  batch norm      `<block>/<name>_gamma` / `_beta` params, and
+                  `batch_stats/<block>/<name>_mean` / `_var` (the block's
+                  scope nested under the collection, as flax keeps it:
+                  `g_norm_0_mean` at the top, `g_dconv_1/norm_mean`, ...)
   spectral norm   `aux[net]['spectral'][...path]['u']`, [1, out]
   prelu           `param`, a 0-d scalar
 
@@ -56,7 +58,8 @@ def _entries(nets: Networks) -> Iterator[Tuple[str, Tuple[str, ...],
                     yield ('params', (net, *parent, f'{leaf}_{pname}'),
                            getattr(mod, pname), BatchNorm, f'{qual}.{pname}')
                 for bname in ('mean', 'var'):
-                    yield ('aux', (net, 'batch_stats', f'{leaf}_{bname}'),
+                    yield ('aux', (net, 'batch_stats', *parent,
+                                   f'{leaf}_{bname}'),
                            getattr(mod, bname), BatchNorm, f'{qual}.{bname}')
                 continue
             for pname, p in mod.named_parameters(recurse=False):

@@ -29,12 +29,18 @@ def _param(*shape, fill: float = 0.0) -> nn.Parameter:
 
 
 class BatchNorm(nn.Module):
-    """Train-mode batch norm (quirk Q14) with learnable gamma/beta. The
-    moving statistics are carried as buffers but never read, and training
+    """Train-mode batch norm (quirk Q14) with learnable gamma/beta, over
+    the channels of NCHW or the features of a 2-D [B, F]. The moving
+    statistics are carried as buffers but never read, and training
     leaves them as they are, since the JAX step keeps `batch_stats`
     immutable (layers.py:74-84). `Networks.cast` keeps gamma/beta float32
     in a bfloat16 copy, since the JAX package reads them as float32
-    (ops/norms.py:94)."""
+    (ops/norms.py:94).
+
+    A block with `norm='batch'` owns one under the JAX package's name
+    (`norm`, or `norm1`/`norm2` in the residual blocks), so its weights
+    are `<block>/norm_gamma`, ... there (`_norm_apply`, layers.py:59-85).
+    """
 
     def __init__(self, channels: int):
         super().__init__()
@@ -48,32 +54,42 @@ class BatchNorm(nn.Module):
         return out
 
 
-def norm_apply(x, norm: Optional[str]):
-    """Dispatch like reference normalization.py:10-29, for the parameter-
-    free norms; batch norm is the `BatchNorm` module."""
+def batch_norm_for(norm: Optional[str], channels: int):
+    """The `BatchNorm` a block owns for `norm`: one for 'batch', None for
+    the parameter-free norms; an unknown norm raises."""
+    if norm not in (None, 'instance', 'batch'):
+        raise ValueError(f'unknown norm: {norm!r}')
+    return BatchNorm(channels) if norm == 'batch' else None
+
+
+def norm_apply(x, norm: Optional[str], bn: Optional[BatchNorm] = None):
+    """Dispatch like reference normalization.py:10-29; `bn` is the
+    block's `BatchNorm` for norm 'batch'."""
     if norm is None:
         return x
     if norm == 'instance':
         return norms.instance_norm(x)
     if norm == 'batch':
-        raise NotImplementedError('batch norm inside a block is not ported '
-                                  'yet (only the generator projection)')
+        return bn(x)
     raise ValueError(f'unknown norm: {norm!r}')
 
 
 def norm_act(x, norm: Optional[str], activation: Optional[str],
-             allow_kernel: bool = True):
+             allow_kernel: bool = True, bn: Optional[BatchNorm] = None):
     """norm -> activation; instance norm with {None, relu, lrelu} goes to
     the fused kernels K1/K2 (layers.py:43-56 of the JAX package), except
     with EDGEGAN_NAN_GUARDS=0, whose unguarded numerics the kernels do not
     implement (pallas_kernels.py:44-56), and where the caller passes
     `allow_kernel=False`: the critics, which WGAN-GP differentiates twice
-    while K2 is first-order only."""
+    while K2 is first-order only. Batch norm takes the plain path. The
+    kernels take contiguous NCHW: a convolution of a permuted NHWC view
+    (the test CLI's and the server's sketch half, into the convnet
+    encoder) returns channels-last strides, made contiguous here."""
     if (allow_kernel and norm == 'instance'
             and activation in (None, 'relu', 'lrelu')
             and norms.nan_guards_enabled()):
-        return kernels.instance_norm_act(x, activation)
-    return activations.activation_fn(norm_apply(x, norm), activation)
+        return kernels.instance_norm_act(x.contiguous(), activation)
+    return activations.activation_fn(norm_apply(x, norm, bn), activation)
 
 
 class Conv2D(nn.Module):
@@ -123,14 +139,15 @@ class Mlp(nn.Module):
                  activation: Optional[str] = None,
                  norm: Optional[str] = None):
         super().__init__()
-        self.activation, self.norm = activation, norm
+        self.activation, self.norm_kind = activation, norm
         self.w = _param(features, in_features)
         self.b = _param(features)
+        self.norm = batch_norm_for(norm, features)
 
     def forward(self, x):
         out = F.linear(x, self.w.to(x.dtype), self.b.to(x.dtype))
         return norm_apply(activations.activation_fn(out, self.activation),
-                          self.norm)
+                          self.norm_kind, self.norm)
 
 
 class ConvBlock(nn.Module):
@@ -142,14 +159,15 @@ class ConvBlock(nn.Module):
                  activation: Optional[str] = None, pad: str = 'SAME',
                  use_bias: bool = False, allow_kernel: bool = True):
         super().__init__()
-        self.norm, self.activation = norm, activation
+        self.norm_kind, self.activation = norm, activation
         self.allow_kernel = allow_kernel
         self.conv2d = Conv2D(in_ch, features, kernel_size, stride, pad,
                              use_bias)
+        self.norm = batch_norm_for(norm, features)
 
     def forward(self, x):
-        return norm_act(self.conv2d(x), self.norm, self.activation,
-                        self.allow_kernel)
+        return norm_act(self.conv2d(x), self.norm_kind, self.activation,
+                        self.allow_kernel, self.norm)
 
 
 class DeconvBlock(nn.Module):
@@ -159,12 +177,14 @@ class DeconvBlock(nn.Module):
                  kernel_size: int, stride: int, norm: Optional[str] = None,
                  activation: Optional[str] = None):
         super().__init__()
-        self.norm, self.activation = norm, activation
+        self.norm_kind, self.activation = norm, activation
         self.deconv2d = Deconv2D(in_ch, features, out_hw, kernel_size,
                                  stride)
+        self.norm = batch_norm_for(norm, features)
 
     def forward(self, x):
-        return norm_act(self.deconv2d(x), self.norm, self.activation)
+        return norm_act(self.deconv2d(x), self.norm_kind, self.activation,
+                        bn=self.norm)
 
 
 class Residual(nn.Module):
@@ -176,15 +196,72 @@ class Residual(nn.Module):
                  norm: Optional[str] = 'instance', pad: str = 'REFLECT',
                  use_bias: bool = False):
         super().__init__()
-        self.norm = norm
+        self.norm_kind = norm
         self.res1 = Conv2D(in_ch, features, 3, 1, pad, use_bias)
+        self.norm1 = batch_norm_for(norm, features)
         self.res2 = Conv2D(features, features, 3, 1, pad, use_bias)
+        self.norm2 = batch_norm_for(norm, features)
         self.shortcut = Conv2D(in_ch, features, 1, 1, pad, use_bias)
 
     def forward(self, x):
-        out = activations.relu(norm_apply(self.res1(x), self.norm))
-        out = norm_apply(self.res2(out), self.norm)
+        out = norm_apply(self.res1(x), self.norm_kind, self.norm1)
+        out = norm_apply(self.res2(activations.relu(out)), self.norm_kind,
+                         self.norm2)
         return activations.relu(self.shortcut(x) + out)
+
+
+class Residual2(nn.Module):
+    """residual2 (reference conv.py:88-103; the JAX package's
+    layers.py:213-234), the resnet critic's block: two convs with lrelu
+    between them + a 1x1 shortcut, `activation` on the sum. Its norms
+    take the plain path: the critics are differentiated twice."""
+
+    def __init__(self, in_ch: int, features: int, kernel_size: int,
+                 stride: int, norm: Optional[str] = None,
+                 activation: Optional[str] = 'lrelu', pad: str = 'SAME',
+                 use_bias: bool = False):
+        super().__init__()
+        self.norm_kind, self.activation = norm, activation
+        self.res1 = Conv2D(in_ch, features, kernel_size, stride, pad,
+                           use_bias)
+        self.norm1 = batch_norm_for(norm, features)
+        self.res2 = Conv2D(features, features, kernel_size, stride, pad,
+                           use_bias)
+        self.norm2 = batch_norm_for(norm, features)
+        self.shortcut = Conv2D(in_ch, features, 1, 1, pad, use_bias)
+
+    def forward(self, x):
+        out = norm_apply(self.res1(x), self.norm_kind, self.norm1)
+        out = self.res2(activations.activation_fn(out, 'lrelu'))
+        out = norm_apply(out, self.norm_kind, self.norm2)
+        return activations.activation_fn(self.shortcut(x) + out,
+                                         self.activation)
+
+
+class Deresidual2(nn.Module):
+    """deresidual2 (reference conv.py:106-121; the JAX package's
+    layers.py:237-256), the resnet generator's block: two transposed
+    convs with `activation` between them + a 1x1 transposed-conv
+    shortcut, `activation` on the sum. Its norms take the plain path, as
+    in the JAX package (never K1/K2)."""
+
+    def __init__(self, in_ch: int, features: int, out_hw: Tuple[int, int],
+                 kernel_size: int, stride: int, norm: Optional[str] = None,
+                 activation: Optional[str] = None):
+        super().__init__()
+        self.norm_kind, self.activation = norm, activation
+        self.res1 = Deconv2D(in_ch, features, out_hw, kernel_size, stride)
+        self.norm1 = batch_norm_for(norm, features)
+        self.res2 = Deconv2D(features, features, out_hw, kernel_size, stride)
+        self.norm2 = batch_norm_for(norm, features)
+        self.shortcut = Deconv2D(in_ch, features, out_hw, 1, 1)
+
+    def forward(self, x):
+        out = norm_apply(self.res1(x), self.norm_kind, self.norm1)
+        out = self.res2(activations.activation_fn(out, self.activation))
+        out = norm_apply(out, self.norm_kind, self.norm2)
+        return activations.activation_fn(self.shortcut(x) + out,
+                                         self.activation)
 
 
 class PReLU(nn.Module):

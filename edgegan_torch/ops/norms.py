@@ -55,14 +55,17 @@ def instance_norm(x, eps: float = 1e-5):
 
 
 def batch_norm(x, gamma, beta, eps: float = 1e-5):
-    """Train-mode batch norm of NCHW `x` (tf.contrib batch_norm with
-    is_training=True, epsilon=1e-5). Returns (out, mean, var)."""
+    """Train-mode batch norm (tf.contrib batch_norm with is_training=True,
+    epsilon=1e-5) with the channels on axis 1: NCHW, or a 2-D [B, F]
+    whose F features are the channels. The statistics run over every
+    other axis, as the JAX package's over all but its last
+    (ops/norms.py:82-95). Returns (out, mean, var)."""
     x32 = x.float()
-    mean = x32.mean(dim=(0, 2, 3), keepdim=True)
-    var = torch.square(x32 - mean).mean(dim=(0, 2, 3), keepdim=True)
+    axes = (0,) + tuple(range(2, x.dim()))
+    mean = x32.mean(dim=axes, keepdim=True)
+    var = torch.square(x32 - mean).mean(dim=axes, keepdim=True)
     out = (x32 - mean) * torch.rsqrt(var + eps)
-    out = out * gamma.float().view(1, -1, 1, 1) + beta.float().view(
-        1, -1, 1, 1)
+    out = out * gamma.float().view_as(mean) + beta.float().view_as(mean)
     return out.to(x.dtype), mean.reshape(-1), var.reshape(-1)
 
 

@@ -3,6 +3,7 @@
 - `mean_pool`: the reference's 2x2 average (pooling.py:4-8), used by the
   classifier's pyramid and its MRU units.
 - `tf_avg_pool`: tf.nn.avg_pool SAME, padding left out of the divisor.
+- `upsample_nearest`: the 2x nearest repeat of the resnet generator.
 """
 from __future__ import annotations
 
@@ -58,3 +59,12 @@ def tf_avg_pool(x, window: int, stride: int):
     x32 = F.pad(x.float(), (wl, wh, hl, hh))
     summed = F.avg_pool2d(x32, window, stride, divisor_override=1)
     return (summed / _counts(h, w, window, stride, x.device)).to(x.dtype)
+
+
+def upsample_nearest(x):
+    """2x nearest-neighbour upsample of NCHW `x`: each pixel fills a 2x2
+    cell (the reference's channel tile + depth_to_space,
+    upsampling.py:4-19; the JAX package's ops/pool.py:54-64)."""
+    b, c, h, w = x.shape
+    return x[:, :, :, None, :, None].expand(b, c, h, 2, w, 2).reshape(
+        b, c, 2 * h, 2 * w)
