@@ -57,15 +57,21 @@ the package is missing, and on any failed check.
 7. Training phase at full width: `python -m edgegan_torch.cli.train`'s
    `main` with the default training configuration (batch 64, 14 classes,
    float32, faithful 7-group step) on a synthetic PNG dataset of two
-   batches per epoch, for 2 epochs (4 steps, checkpoints 2 and 5), then
-   again for 1 epoch, which must resume at counter 5; then a fresh run of
-   2 steps with `--dtype bfloat16` and both classifier switches on
-   (EDGEGAN_PALLAS_PRELU=1, EDGEGAN_PALLAS_GATE=1). Every metric must be
-   finite, every optimizer group must move, and the kernels must launch
-   K1 21, K2 12 times per step, all in the lane-group variant, and K5
-   42, K3 12, K4 12 times per step with the switches on (K3/K4 split
-   across the variants as `gate_plan` sends the four gates), 0 with them
-   off (the default).
+   batches per epoch, for 2 epochs (4 steps, checkpoints 2 and 5) with
+   `--summary_frequency 2`, then again for 1 epoch, which must resume at
+   counter 5; then a fresh run of 2 steps with `--dtype bfloat16` and
+   both classifier switches on (EDGEGAN_PALLAS_PRELU=1,
+   EDGEGAN_PALLAS_GATE=1). Every metric must be finite, every optimizer
+   group must move, and the kernels must launch K1 21, K2 12 times per
+   step, all in the lane-group variant, and K5 42, K3 12, K4 12 times per
+   step with the switches on (K3/K4 split across the variants as
+   `gate_plan` sends the four gates), 0 with them off (the default); the
+   summaries' sample forward adds K1 6 per `extras` call. The first
+   run's TensorBoard event file is parsed (`read_events`: TFRecord
+   framing, both masked CRC32Cs of every record, the `Event` protos): 11
+   scalar tags at every step and the 14 extras tags at counters 2 and 4;
+   then one `extras` call at batch 64 is timed (host clock for the whole
+   call, CUDA events for its sample forward).
 8. Lifecycle phase, this slice's path at full width through the entry
    points, both classifier switches on: `cli.train` with
    `--update_mode fast --reference_metrics True --update_sn True`, 3
@@ -82,6 +88,23 @@ the package is missing, and on any failed check.
    the same checkpoint and noise (within one byte). Then `serve.main`
    with no --weights, from the checkpoint directory, answering a raw
    batch and a PNG (K1 6 launches per batch).
+8a. Evaluate phase: `python -m edgegan_torch.cli.evaluate` at full width
+   on the training phase's checkpoint 5, over 256 synthetic 64x128 pairs
+   (a split 'eval') at --eval_batch 64, with the pinned extractor
+   (docs/fid_extractor.npz, the repository's trained classifier) and the
+   in-run one, each with EDGEGAN_PALLAS_GATE off and on: one printed JSON
+   line with the JAX script's keys and a finite classifier_fid; K1 6
+   launches per generator forward, K3 4 per classifier forward with the
+   switch on and 0 off; wall time and images per second. Before it the
+   native PNG loader is built or reported unavailable (`native_loader:
+   built | unavailable (...)`) and, built, its decode of 64 of the PNGs
+   is held to the PIL path's pixels bit for bit; after it the pinned
+   extractor's features of one batch on the card are held to the port's
+   CPU forward (1e-3 of the largest |feature|), and with the gate switch
+   on to off (K3's float32 limit).
+8b. TF importer: `convert.export_tf_npz` -> `import_tf_npz` of the default
+   14-class trees bit-exact, and G2's forward on the card from the
+   imported trees bitwise equal to the forward from the originals.
 9. One training step at full width and batch 4 on the card against the
    same step on the CPU, from the same weights and random draws; and a
    second card step with both switches on, against the same CPU step.
@@ -112,7 +135,8 @@ the package is missing, and on any failed check.
    the multi-pass kernels), the step timed in float32 and bfloat16 with
    peak memory, and K1/K2 at [64, 64, 64, 64] and K3/K4 at [64, 8, 128,
    128] held to their plain versions (two runs bitwise equal) and timed
-   per call beside their bounds.
+   per call beside their bounds; K5 at the 9 hires PReLU shapes held and
+   timed per call, and summed over a step's 42 calls.
 13. Prints one JSON line describing every kernel, then
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -626,11 +650,11 @@ def in_variants_phase(card: str):
 
 
 @contextlib.contextmanager
-def classifier_switches(on: bool):
-    """Both classifier switches set to 1 (on) or unset (off, the default),
-    restored afterwards."""
-    saved = {k: os.environ.get(k) for k in SWITCHES}
-    for k in SWITCHES:
+def classifier_switches(on: bool, names=SWITCHES):
+    """The classifier switches `names` (both by default) set to 1 (on) or
+    unset (off, the default), restored afterwards."""
+    saved = {k: os.environ.get(k) for k in names}
+    for k in names:
         if on:
             os.environ[k] = '1'
         else:
@@ -805,15 +829,19 @@ def gate_split(dtype, config):
 
 
 def expected_launches(kind: str, dtype, switches: bool, steps: float = 1,
-                      config=None):
+                      config=None, extras: int = 0):
     """`kernels.LAUNCHES` after `steps` training steps of `kind`
     (STEP_KINDS) in `dtype` of `config` (the default configuration when
-    None): K1 and K2 on each plane set of `in_planes` in the variant
-    `instance_norm_plan` picks for it (lane groups at the default sizes;
-    multi-pass for ragged planes, such as the encoder's 1x1, and beyond
-    1024 float32 / 2048 bfloat16 elements, such as the hires generator's
-    64x64), K3's and K4's in the variants where `gate_plan` sends the four
-    gates, K5 and K3/K4 only with the switches on."""
+    None), with `extras` calls of the summaries' sample forward (G1 and
+    G2 on a float32 z; the critics on the plain path): K1 and K2 on each
+    plane set of `in_planes` in the variant `instance_norm_plan` picks for
+    it (lane groups at the default sizes; multi-pass for ragged planes,
+    such as the encoder's 1x1, and beyond 1024 float32 / 2048 bfloat16
+    elements, such as the hires generator's 64x64), K3's and K4's in the
+    variants where `gate_plan` sends the four gates, K5 and K3/K4 only
+    with the switches on."""
+    import torch
+
     from edgegan_torch.core.config import Config
     from edgegan_torch.ops import kernels
     config = config or Config().derive('train')
@@ -828,6 +856,10 @@ def expected_launches(kind: str, dtype, switches: bool, steps: float = 1,
                 variant = kernels.instance_norm_plan(h * w, dtype, 0)[0]
                 want[name] += calls * steps
                 want[f'{name}.{variant}'] += calls * steps
+    for _, h, w in gen:
+        variant = kernels.instance_norm_plan(h * w, torch.float32, 0)[0]
+        want['instance_norm_act'] += 2 * extras
+        want[f'instance_norm_act.{variant}'] += 2 * extras
     want.update({'prelu_bwd': on * 14 * backwards * steps,
                  'mru_gate_blend': on * 4 * forwards * steps,
                  'mru_gate_bwd': on * 4 * backwards * steps})
@@ -1203,14 +1235,14 @@ def serving_phase(card: str):
 
 
 def write_dataset(root: str, n_images: int, n_classes: int, h: int, w: int,
-                  seed: int = 0):
-    """<root>/ds/train/<class>/*.png: `n_images` random h x w sketch|photo
-    pairs, spread over `n_classes` class directories."""
+                  seed: int = 0, split: str = 'train'):
+    """<root>/ds/<split>/<class>/*.png: `n_images` random h x w
+    sketch|photo pairs, spread over `n_classes` class directories."""
     import numpy as np
     from PIL import Image
     rng = np.random.RandomState(seed)
     for i in range(n_images):
-        d = os.path.join(root, 'ds', 'train', str(i % n_classes))
+        d = os.path.join(root, 'ds', split, str(i % n_classes))
         os.makedirs(d, exist_ok=True)
         img = (rng.rand(h, w, 3) * 255).astype(np.uint8)
         Image.fromarray(img).save(os.path.join(d, f'{i:04d}.png'))
@@ -1241,12 +1273,14 @@ def train_phase(card: str, tmp: str):
     out = os.path.join(tmp, 'outputs')
     start, _ = bridge.random_jax_params(config, config.seed, critics=True)
     runs = [  # (label, --name, flags, switches, steps, first counter)
-        ('float32 --epoch 2', 'smoke', ['--epoch', '2'], False, 4, 2),
+        (SUMMARIES_RUN, 'smoke',
+         ['--epoch', '2', '--summary_frequency', str(SUMMARY_FREQUENCY)],
+         False, 4, 2),
         ('float32 resumed --epoch 1', 'smoke', ['--epoch', '1'], False, 2,
          6),
         ('bfloat16 --epoch 1, switches on', 'smoke_bf16',
          ['--epoch', '1', '--dtype', 'bfloat16'], True, 2, 2)]
-    launches = {}
+    launches, extras_ms = {}, None
     for label, name, flags, switches, steps, first in runs:
         args = ['--dataroot', root, '--dataset', 'ds', '--outputsroot', out,
                 '--name', name, '--save_checkpoint_frequency', '3'] + flags
@@ -1277,9 +1311,14 @@ def train_phase(card: str, tmp: str):
                                           for v in vals.values()),
                   f'{label}: metrics at step {m["step"]}: {vals}')
         on = int(switches)
+        # the extras run at the counters reached (first .. first + steps
+        # - 1) that are multiples of --summary_frequency
+        extras = (len([c for c in range(first, first + steps)
+                       if c % SUMMARY_FREQUENCY == 0])
+                  if label == SUMMARIES_RUN else 0)
         want = expected_launches(
             'faithful', torch.bfloat16 if 'bfloat16' in flags
-            else torch.float32, switches, steps)
+            else torch.float32, switches, steps, extras=extras)
         check(counts == want, f'{label}: launches {counts} for {steps} '
               f'steps, expected {want}')
         params, _ = bridge.export_jax_params(state.nets)
@@ -1291,14 +1330,384 @@ def train_phase(card: str, tmp: str):
               f'{config.batch_size} in {wall:.3f} s with start-up (host '
               f'clock); launches {counts} = per step K1 {K1_PER_STEP}, K2 '
               f'{K2_PER_STEP}, K5 {on * K5_PER_STEP}, K3 {on * K3_PER_STEP}, '
-              f'K4 {on * K4_PER_STEP}; largest change per network in this '
+              f'K4 {on * K4_PER_STEP}, and K1 6 per summaries extras call '
+              f'({extras} calls); largest change per network in this '
               f'run: ' + ', '.join(f'{k} {v:.3g}' for k, v in moved.items())
               + f' [{card}]')
         print('  last metrics: ' + json.dumps(lines[-1]))
-        if label == runs[0][0]:
+        if label == SUMMARIES_RUN:
             check(ckpt.steps(ckpt_dir) == [2, 5],
                   f'checkpoints {ckpt.steps(ckpt_dir)}, expected [2, 5]')
-    return launches
+            extras_ms = summaries_check(
+                card, os.path.join(out, name, 'logs'), state, config,
+                list(range(first, first + steps)), tmp)
+    return launches, extras_ms
+
+
+SUMMARIES_RUN = 'float32 --epoch 2 --summary_frequency 2'
+SUMMARY_FREQUENCY = 2
+EXTRAS_TAGS = {'z', 'd', 'd_', 'imageD', 'imageDfake', 'edgeD', 'edgeDfake',
+               'inputs', 'G1', 'G2', 'resized_inputs_image',
+               'resized_G_image', 'resized_inputs_p3_image',
+               'resized_G_p3_image'}
+
+
+def _proto_fields(buf: bytes):
+    """{field number: [values]} of one protobuf message: ints for varints,
+    bytes for length-delimited fields and fixed64/fixed32 ones."""
+    fields, pos = {}, 0
+
+    def varint():
+        nonlocal pos
+        n = shift = 0
+        while True:
+            b = buf[pos]
+            pos += 1
+            n |= (b & 0x7F) << shift
+            shift += 7
+            if not b & 0x80:
+                return n
+
+    while pos < len(buf):
+        key = varint()
+        wire = key & 7
+        if wire == 0:
+            value = varint()
+        elif wire == 2:
+            n = varint()
+            value, pos = buf[pos:pos + n], pos + n
+        elif wire in (1, 5):
+            n = 8 if wire == 1 else 4
+            value, pos = buf[pos:pos + n], pos + n
+        else:
+            raise RuntimeError(f'check failed: wire type {wire} in an event')
+        fields.setdefault(key >> 3, []).append(value)
+    return fields
+
+
+def _crc32c_table():
+    table = []
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = (c >> 1) ^ (0x82F63B78 * (c & 1))
+        table.append(c)
+    return table
+
+
+def crc32c(data: bytes, table=_crc32c_table()) -> int:
+    """CRC-32C, computed here and not by the package's event writer, so
+    that the event check does not share the code it checks."""
+    c = 0xFFFFFFFF
+    for b in data:
+        c = table[(c ^ b) & 0xFF] ^ (c >> 8)
+    return c ^ 0xFFFFFFFF
+
+
+def masked_crc32c(data: bytes) -> int:
+    """TFRecord's masked CRC: rotate right by 15, add a constant."""
+    c = crc32c(data)
+    return (((c >> 15) | (c << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def read_events(path: str):
+    """(file_version, [(step, tag)]) of a TensorBoard event file: each
+    TFRecord's length and data CRCs are checked (masked CRC32C, this
+    script's own), then its `Event` proto is decoded: file_version (3),
+    step (2), summary (5) -> value (1) -> tag (1)."""
+    import struct
+
+    check(crc32c(b'123456789') == 0xE3069283,
+          'CRC-32C of b"123456789" is its standard check value')
+    with open(path, 'rb') as f:
+        data = f.read()
+    version, values, pos = None, [], 0
+    while pos < len(data):
+        check(pos + 12 <= len(data), f'{path}: truncated header at {pos}')
+        header = data[pos:pos + 8]
+        (n,) = struct.unpack('<Q', header)
+        check(struct.unpack('<I', data[pos + 8:pos + 12])[0]
+              == masked_crc32c(header), f'{path}: length CRC at {pos}')
+        payload = data[pos + 12:pos + 12 + n]
+        check(len(payload) == n and pos + 16 + n <= len(data),
+              f'{path}: truncated record at {pos}')
+        check(struct.unpack('<I', data[pos + 12 + n:pos + 16 + n])[0]
+              == masked_crc32c(payload), f'{path}: data CRC at {pos}')
+        event = _proto_fields(payload)
+        if 3 in event:
+            version = event[3][0].decode()
+        for summary in event.get(5, []):
+            for value in _proto_fields(summary).get(1, []):
+                values.append((event[2][0],
+                               _proto_fields(value)[1][0].decode()))
+        pos += 16 + n
+    return version, values
+
+
+def summaries_check(card: str, logdir: str, state, config, steps, tmp: str):
+    """The trainer's event file of `steps` (counters) parsed with valid
+    CRCs: the 11 scalar tags at every step and the extras' tags at the
+    counters that are multiples of SUMMARY_FREQUENCY, nothing else; then
+    the cost of one `extras` call at batch 64 on the run's final state:
+    the whole call by the host clock (forward, copies to the host, PNG
+    encoding, CRCs, write) and its sample forward alone by CUDA events.
+    Returns those two times in ms."""
+    import glob
+
+    import torch
+
+    from edgegan_torch.summaries import SCALARS, SummaryWriter
+
+    (path,) = glob.glob(os.path.join(logdir, 'events.out.tfevents.*'))
+    t0 = time.perf_counter()
+    version, values = read_events(path)
+    read_s = time.perf_counter() - t0
+    check(version == 'brain.Event:2', f'file_version {version!r}')
+    for step in steps:
+        tags = sorted(t for s, t in values if s == step)
+        want = sorted(SCALARS + (sorted(EXTRAS_TAGS)
+                                 if step % SUMMARY_FREQUENCY == 0 else []))
+        check(tags == want, f'events at step {step}: {tags}, expected '
+              f'{want}')
+    check({s for s, _ in values} == set(steps),
+          f'event steps {sorted({s for s, _ in values})}')
+    size = os.path.getsize(path)
+
+    tb = SummaryWriter(os.path.join(tmp, 'extras_cost'), config)
+    gen = torch.Generator(device='cuda').manual_seed(9)
+    b = config.batch_size
+    images = torch.rand(b, config.output_height, config.output_width, 3,
+                        generator=gen, device='cuda') * 2 - 1
+    classes = torch.randint(0, config.num_classes, (b, 1), generator=gen,
+                            device='cuda').float()
+    z = torch.cat([torch.randn(b, config.z_dim, generator=gen,
+                               device='cuda'), classes], dim=1)
+    try:
+        tb.extras(0, state, images, classes)  # warm-up
+        host = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tb.extras(i + 1, state, images, classes)
+            torch.cuda.synchronize()
+            host.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        tb.close()
+    forward_ms = cuda_ms(lambda: tb.sample(state.nets, z, images), 5)
+    print(f'summaries: {path.rsplit(os.sep, 1)[-1]}, {size} bytes, '
+          f'{len(values)} values over steps {steps[0]}-{steps[-1]}, every '
+          f'record\'s CRCs valid (read in {read_s:.2f} s); 11 scalars a step, '
+          f'the {len(EXTRAS_TAGS)} extras tags at counters '
+          f'{[c for c in steps if c % SUMMARY_FREQUENCY == 0]}. extras at '
+          f'batch {b}: {min(host):.1f}-{max(host):.1f} ms a call (host clock, '
+          f'3 calls: forward, copies, PNG encoding, CRCs, write), its '
+          f'sample forward {forward_ms:.2f} ms (CUDA events) [{card}]')
+    return {'call_ms_host_clock': host, 'forward_ms_cuda_events': forward_ms}
+
+
+EVAL_PAIRS = 256
+EVAL_BATCH = 64
+EVAL_KEYS = ['checkpoint_step', 'extractor', 'extractor_step', 'split',
+             'n_images', 'classifier_fid', 'note', 'l1', 'mse', 'psnr_db']
+PINNED_NPZ = os.path.join('docs', 'fid_extractor.npz')
+FEATURE_TOL = 1e-3   # card vs CPU, of the largest |feature|
+GATE = ('EDGEGAN_PALLAS_GATE',)
+
+
+def evaluate_launches(config, gate: bool, forwards: int,
+                      classifier_forwards: int, extractor_config):
+    """`kernels.LAUNCHES` after an evaluation of `forwards` test forwards
+    of `config` (K1 on both generators' and the encoder's planes) and
+    `classifier_forwards` forwards of an extractor built for
+    `extractor_config` (K3 on its four MRU gates, with the gate switch
+    on), all in float32."""
+    import torch
+    want = forward_launches(config, torch.float32, forwards)
+    want['mru_gate_blend'] = int(gate) * 4 * classifier_forwards
+    for variant, calls in gate_split(torch.float32,
+                                     extractor_config).items():
+        want[f'mru_gate_blend.{variant}'] = (int(gate) * calls
+                                             * classifier_forwards)
+    return want
+
+
+def evaluate_phase(card: str, tmp: str):
+    """`python -m edgegan_torch.cli.evaluate` at full width on cuda, on the
+    train phase's checkpoint 5, over EVAL_PAIRS synthetic 64x128 pairs of
+    a split 'eval' at --eval_batch 64, with the pinned extractor
+    (docs/fid_extractor.npz) and with the in-run one, each with
+    EDGEGAN_PALLAS_GATE off and on: one JSON line of the JAX script's keys
+    with a finite classifier_fid, and K1 6 launches per generator forward,
+    K3 4 per classifier forward with the switch on, 0 off. Before: the
+    native loader built or not, and built, its decode of 64 of the PNGs
+    against the PIL path's pixels bit for bit. After: the pinned features
+    of one batch on the card against the port's CPU forward (FEATURE_TOL
+    of the largest |feature|), and with the switch on against off (K3's
+    float32 limit). Returns (launches by run, results by run)."""
+    import glob
+    import math
+
+    import numpy as np
+    import torch
+
+    from edgegan_torch.cli import evaluate as evaluate_cli
+    from edgegan_torch.core.config import Config
+    from edgegan_torch.data import native_loader
+    from edgegan_torch.data.dataset import Dataset
+    from edgegan_torch.evaluation import pinned_extractor
+    from edgegan_torch.ops import kernels
+    from edgegan_torch.utils.images import imread, imresize
+
+    config = Config().derive('test')
+    h, w = config.output_height, config.output_width
+    root = os.path.join(tmp, 'data')
+    write_dataset(root, EVAL_PAIRS, config.num_classes, h, w, seed=5,
+                  split='eval')
+
+    if native_loader.get_lib() is None:
+        print(f'native_loader: unavailable ({native_loader.build_error})')
+    else:
+        print('native_loader: built')
+        files = sorted(glob.glob(os.path.join(root, 'ds', 'eval', '*',
+                                              '*.png')))[:EVAL_BATCH]
+        t0 = time.perf_counter()
+        got, fail = native_loader.decode_batch(files, h, w)
+        decode_s = time.perf_counter() - t0
+        check(not fail.any(), f'native decode failed on {fail.sum()} files')
+        for img, f in zip(got, files):
+            pixels = imresize(imread(f), (h, w))
+            want = (pixels.astype(np.float32) / np.float32(127.5)
+                    - np.float32(1))
+            check(np.array_equal(img, want), f'native decode of {f} differs '
+                  'from the PIL path')
+        print(f'native_loader: {len(files)} {h}x{w} PNGs decoded in '
+              f'{1e3 * decode_s:.1f} ms (host clock), bit for bit the PIL '
+              'path\'s pixels over 127.5 minus 1 in float32')
+
+    base = ['--dataroot', root, '--dataset', 'ds', '--outputsroot',
+            os.path.join(tmp, 'outputs'), '--name', 'smoke', '--split',
+            'eval', '--limit', str(EVAL_PAIRS), '--eval_batch',
+            str(EVAL_BATCH)]
+    forwards = EVAL_PAIRS // EVAL_BATCH
+    with open(PINNED_NPZ + '.json') as f:
+        pinned_config = Config(**json.load(f)['config']).derive('train')
+    launches, results = {}, {}
+    for extractor in ('pinned', 'in-run'):
+        for gate in (False, True):
+            label = (f'evaluate, {extractor} extractor, gate '
+                     f'{"on" if gate else "off"}')
+            argv = base + (['--extractor_npz', PINNED_NPZ]
+                           if extractor == 'pinned' else [])
+            for k in kernels.LAUNCHES:
+                kernels.LAUNCHES[k] = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with classifier_switches(gate, GATE), \
+                    contextlib.redirect_stdout(buf):
+                result = evaluate_cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[label] = counts = dict(kernels.LAUNCHES)
+            lines = buf.getvalue().splitlines()
+            check(len(lines) == 1 and json.loads(lines[0]) == result,
+                  f'{label}: printed {lines}')
+            check(list(result) == EVAL_KEYS, f'{label}: keys {list(result)}')
+            check(math.isfinite(result['classifier_fid'])
+                  and result['n_images'] == EVAL_PAIRS
+                  and result['checkpoint_step'] == 5
+                  and result['extractor_step'] == (
+                      None if extractor == 'pinned' else 5),
+                  f'{label}: {result}')
+            want = evaluate_launches(
+                config, gate, forwards, 2 * forwards,
+                pinned_config if extractor == 'pinned' else config)
+            check(counts == want, f'{label}: launches {counts}, expected '
+                  f'{want}')
+            results[label] = {'wall_s': wall,
+                              'images_per_s': EVAL_PAIRS / wall, **result}
+            print(f'{label}: {EVAL_PAIRS} pairs at batch {EVAL_BATCH} in '
+                  f'{wall:.3f} s with start-up (host clock), '
+                  f'{EVAL_PAIRS / wall:.1f} images/s; classifier_fid '
+                  f'{result["classifier_fid"]}, l1 {result["l1"]}, psnr '
+                  f'{result["psnr_db"]} dB; launches K1 '
+                  f'{counts["instance_norm_act"]} ({forwards} generator '
+                  f'forwards), K3 {counts["mru_gate_blend"]} '
+                  f'({2 * forwards} classifier forwards) [{card}]')
+
+    images = Dataset(root, 'ds', EVAL_BATCH, EVAL_BATCH,
+                     dict(input_height=h, input_width=w, output_height=h,
+                          output_width=w, crop=False, grayscale=False,
+                          z_dim=config.z_dim),
+                     config.num_classes, subdir='eval')[0][0]
+    photos = images[:, :, w // 2:, :]
+    feats = {}
+    for gate in (False, True):
+        with classifier_switches(gate, GATE):
+            feats[gate] = pinned_extractor(PINNED_NPZ, 'cuda')(photos)
+    cpu = pinned_extractor(PINNED_NPZ, 'cpu')(photos)
+    scale = float(np.abs(cpu).max())
+    err_cpu = float(np.abs(feats[False] - cpu).max()) / scale
+    err_gate = float(np.abs(feats[True] - feats[False]).max())
+    check(err_cpu <= FEATURE_TOL, f'pinned features card vs CPU: '
+          f'{err_cpu:.3g} of the largest |feature|')
+    check(err_gate <= TOL['float32']['atol'], f'pinned features gate on vs '
+          f'off: {err_gate:.3g}')
+    print(f'evaluate: pinned features of {EVAL_BATCH} photo halves, card vs '
+          f'CPU {err_cpu:.3g} of the largest |feature| ({scale:.4f}; limit '
+          f'{FEATURE_TOL}); gate on vs off max abs {err_gate:.3g} (limit '
+          f'{TOL["float32"]["atol"]}) [{card}]')
+    results['pinned_features'] = {'card_vs_cpu_of_max': err_cpu,
+                                  'gate_on_vs_off_max_abs': err_gate}
+    return launches, results
+
+
+def tf_import_phase(card: str, tmp: str):
+    """`convert.export_tf_npz` -> `import_tf_npz` of the default 14-class
+    trees (every network, random weights) bit-exact, and G2's forward on
+    the card at batch 64 from the imported trees bitwise equal to the
+    forward from the originals (cuDNN deterministic)."""
+    import numpy as np
+    import torch
+
+    from edgegan_torch import bridge, convert
+    from edgegan_torch.core.config import Config
+    from edgegan_torch.train.networks import Networks
+
+    config = Config().derive('train')
+    params, aux = bridge.random_jax_params(config, 7, critics=True)
+    path = os.path.join(tmp, 'edgegan_tf.npz')
+    t0 = time.perf_counter()
+    names = convert.export_tf_npz(params, aux, config, path)
+    check(names == convert.tf_variable_names(config), 'exported names')
+    got = convert.import_tf_npz(path, config)
+    wall = time.perf_counter() - t0
+    for want_tree, got_tree in zip((params, aux), got):
+        want_flat = bridge.flatten_npz(t=want_tree)
+        got_flat = bridge.flatten_npz(t=got_tree)
+        check(want_flat.keys() == got_flat.keys(), 'imported paths differ')
+        for k, v in want_flat.items():
+            check(got_flat[k].dtype == v.dtype and np.array_equal(
+                got_flat[k], v), f'imported {k} differs')
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    b = config.batch_size
+    z = torch.randn(b, config.z_dim, generator=gen, device='cuda')
+    classes = torch.randint(0, config.num_classes, (b,), generator=gen,
+                            device='cuda')
+    outs = []
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for trees in ((params, aux), got):
+            nets = bridge.load_jax_params(Networks(config), *trees).cuda()
+            with torch.no_grad():
+                outs.append(nets.G2(nets.gen_input(z, classes)))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    check(torch.equal(*outs), 'G2 from the imported trees differs')
+    print(f'tf_import: {len(names)} TF variables exported and imported '
+          f'bit-exact in {wall:.2f} s (host clock, with the shape check); '
+          f'G2 at batch {b} on the card from the imported trees bitwise '
+          f'equal to the originals\' [{card}]')
 
 
 def write_test_tree(root: str, per_class: int, n_classes: int, h: int,
@@ -2145,7 +2554,59 @@ def hires_phase(card: str, tmp: str):
             key = f'{kname} {dname} {list(shape)} {variant}'
             per_call[key] = per_call_times(card, 'hires unit 1', key, match,
                                            fn, args, tensors, ops, plain)
+    gate_err['K5'] = k5_hires(card, per_call)
     return launches, steps, per_call, {**err, **gate_err}
+
+
+def k5_hires(card: str, per_call: dict) -> float:
+    """K5 at the hires classifier's 9 PReLU shapes (PRELU_SHAPES at
+    128x128 halves) at batch 64, float32 and bfloat16: dx held to the
+    plain version (TOL) and dleak to a float64 sum (DLEAK_RTOL), then
+    timed per call (`per_call_times`: the profile's device time of the
+    main kernel, `prelu_bwd_kernel`; CUDA events of the whole call, its
+    partial-sum kernel included) beside the byte bound, and summed over a
+    faithful step's 42 calls. Adds the per-call times to `per_call`;
+    returns the largest dx difference."""
+    import torch
+
+    from edgegan_torch.ops import kernels
+    gen = torch.Generator(device='cuda').manual_seed(13)
+    lk = torch.tensor(0.2, device='cuda')
+    max_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split('.')[-1]
+        step = dict.fromkeys(('device_ms', 'ms', 'bound_ms', 'plain_ms'), 0.0)
+        for (c, h, w), calls in PRELU_SHAPES:
+            shape = (64, c, 2 * h, 2 * w)
+            x = (torch.randn(shape, device='cuda', generator=gen) * 2).to(
+                dtype)
+            x[:, :, 0, :] = 0.0   # exact zeros: the tie leak*x == x
+            g = torch.randn(shape, device='cuda', generator=gen).to(dtype)
+            dx, dleak = kernels.prelu_bwd(x, g, lk)
+            ref, _ = kernels.prelu_bwd_plain(x, g, lk)
+            d64, scale = _dleak64(x, g, lk)
+            err, ok, _ = _close(dx, ref, TOL[dname])
+            check(ok and abs(dleak.item() - d64) / scale <= DLEAK_RTOL,
+                  f'hires K5 {dname} {list(shape)}: dx diff {err:.3g}, '
+                  f'dleak diff {abs(dleak.item() - d64) / scale:.3g}')
+            dx2, dleak2 = kernels.prelu_bwd(x, g, lk)
+            check(torch.equal(dx, dx2) and torch.equal(dleak, dleak2),
+                  f'hires K5 {dname} {list(shape)}: two runs differ')
+            max_err = max(max_err, err)
+            key = f'K5 {dname} {list(shape)}'
+            t = per_call[key] = per_call_times(
+                card, 'hires K5', key, 'prelu_bwd_kernel',
+                lambda a, b: kernels.prelu_bwd(a, b, lk), (x, g), 3,
+                K5_OPS_PER_ELEMENT, lambda: kernels.prelu_bwd_plain(x, g, lk))
+            for k in step:
+                step[k] = (None if step[k] is None or t[k] is None
+                           else step[k] + CLASSIFIER_PASSES * calls * t[k])
+        per_call[f'K5 {dname} per hires faithful step ({K5_PER_STEP} '
+                 'calls)'] = step
+        print(f'hires K5 per faithful step ({K5_PER_STEP} calls) {dname}: '
+              + ', '.join(f'{k} {_f4(v)}' for k, v in step.items())
+              + f' [{card}]')
+    return max_err
 
 
 def host_cost_phase(card: str):
@@ -2393,6 +2854,8 @@ def main() -> int:
         phase('serve', serving_phase, card)
         phase('train', train_phase, card, tmp)
         phase('lifecycle', lifecycle_phase, card, tmp)
+        phase('evaluate', evaluate_phase, card, tmp)
+        phase('tf_import', tf_import_phase, card, tmp)
         phase('card_vs_cpu', card_vs_cpu_phase, card)
         phase('step_time', step_time_phase, card)
         phase('step_time fast', step_time_phase, card, 'fast')
@@ -2410,8 +2873,10 @@ def main() -> int:
     gate_err, gate_steps = results['K3/K4']
     v_launches, v_steps, v_per_call, v_err = results['variants']
     h_launches, h_steps, h_per_call, h_err = results['hires']
-    train_runs = {**results['train'], **results['lifecycle'], **v_launches,
-                  **h_launches}
+    train_launches, extras_ms = results['train']
+    e_launches, e_results = results['evaluate']
+    train_runs = {**train_launches, **results['lifecycle'], **v_launches,
+                  **h_launches, **e_launches}
 
     def per_call(kname):
         """K1-K4's per-call times at this slice's new planes: the convnet
@@ -2497,7 +2962,10 @@ def main() -> int:
             train_step_device_ms={
                 d: prof[(d, True)]['prelu_bwd']
                 for d in ('float32', 'bfloat16')},
-            fast_step_device_ms=fast_device_ms('prelu_bwd', True)),
+            fast_step_device_ms=fast_device_ms('prelu_bwd', True),
+            hires_planes={k: v for k, v in h_per_call.items()
+                          if k.startswith('K5')},
+            max_abs_err_at_hires_planes=h_err['K5']),
         _kernel_entry(
             'mru_gate_blend', 'edgegan_torch/csrc/mru_gate.cu',
             'edgegan_tpu/ops/pallas_kernels.py:368',
@@ -2533,7 +3001,8 @@ def main() -> int:
         'fast_step_ms': {f'{d}, switches {"on" if on else "off"}': t[0]
                          for (d, on), t in fast_times.items()},
         'variant_step_ms': v_steps, 'hires_step_ms': h_steps,
-        'host_us_per_call': results['host_cost']}))
+        'host_us_per_call': results['host_cost'],
+        'summaries_extras': extras_ms, 'evaluate': e_results}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

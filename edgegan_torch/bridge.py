@@ -21,7 +21,9 @@ differ:
   prelu           `param`, a 0-d scalar
 
 Only the networks a bundle holds cross the bridge: G1, G2 and E for
-inference, all seven for training (`Networks(..., critics=True)`).
+inference, all seven for training (`Networks(..., critics=True)`);
+`load_classifier` takes one classifier's own trees (no 'D2' level), as
+the pinned FID extractor stores them.
 `save_npz` / `load_npz` keep the same trees as one flat npz whose keys
 are '/'-joined paths (`params/G1/g_lin_0/Matrix`, ...).
 """
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from .core.config import Config
+from .models.classifier import Classifier
 from .models.layers import (BatchNorm, Conv2D, Deconv2D, Linear, Mlp,
                             SNConv2D, SNDense)
 from .train.networks import Networks
@@ -43,13 +46,19 @@ _PERM = {(Conv2D, 'w'): (3, 2, 0, 1), (Deconv2D, 'w'): (3, 2, 0, 1),
          (Mlp, 'w'): (1, 0), (SNDense, 'weights'): (1, 0)}
 
 
-def _entries(nets: Networks) -> Iterator[Tuple[str, Tuple[str, ...],
-                                               torch.Tensor, type, str]]:
+def _networks(nets: Networks) -> Dict[str, torch.nn.Module]:
+    """The networks a bundle holds, by name."""
+    return {net: getattr(nets, net) for net in nets.names}
+
+
+def _entries(networks: Dict[str, torch.nn.Module]
+             ) -> Iterator[Tuple[str, Tuple[str, ...], torch.Tensor, type,
+                             str]]:
     """(collection, JAX key path, torch tensor, owning module type, torch
-    qualified name) for every weight and state vector of the networks
-    `nets` holds."""
-    for net in nets.names:
-        for mod_name, mod in getattr(nets, net).named_modules():
+    qualified name) for every weight and state vector of `networks`
+    (name -> module)."""
+    for net, module in networks.items():
+        for mod_name, mod in module.named_modules():
             path = tuple(mod_name.split('.')) if mod_name else ()
             qual = '.'.join((net, *path))
             if isinstance(mod, BatchNorm):
@@ -79,7 +88,7 @@ def param_paths(nets: Networks) -> Dict[str, Tuple[Tuple[str, ...], type]]:
     """torch qualified parameter name (as `nets.named_parameters()` gives
     it, e.g. 'G1.g_norm_0.gamma') -> (JAX params path, module type)."""
     return {qual: (path, kind)
-            for coll, path, _, kind, qual in _entries(nets)
+            for coll, path, _, kind, qual in _entries(_networks(nets))
             if coll == 'params'}
 
 
@@ -133,10 +142,24 @@ def load_jax_params(nets: Networks, params, aux) -> Networks:
     """Copy the JAX trees of the networks `nets` holds into it (in
     place). Other networks in the trees are ignored; a missing, extra or
     misshapen weight of these raises."""
+    _load(_networks(nets), params, aux)
+    return nets
+
+
+def load_classifier(classifier: Classifier, params, aux) -> Classifier:
+    """Copy a classifier's own trees into it (in place): `params` and
+    `aux` ({'spectral': ...}) without the 'D2' level, as the pinned FID
+    extractor (docs/fid_extractor.npz) stores them. Raises as
+    `load_jax_params` does."""
+    _load({'D2': classifier}, {'D2': params}, {'D2': aux})
+    return classifier
+
+
+def _load(networks: Dict[str, torch.nn.Module], params, aux):
     trees = {'params': params, 'aux': aux}
     seen = set()
     with torch.no_grad():
-        for coll, path, t, kind, _ in _entries(nets):
+        for coll, path, t, kind, _ in _entries(networks):
             try:
                 arr = _get(trees[coll], path)
             except KeyError:
@@ -149,20 +172,19 @@ def load_jax_params(nets: Networks, params, aux) -> Networks:
             t.copy_(src)
             seen.add((coll,) + path)
     for coll in ('params', 'aux'):
-        for net in nets.names:
+        for net in networks:
             tree = trees[coll].get(net, {})
             extra = {(coll, net) + k for k in _flatten(tree)}
             extra -= seen
             if extra:
                 raise ValueError(f'unused weights: {sorted(extra)[:5]}')
-    return nets
 
 
 def export_jax_params(nets: Networks):
     """The inverse of `load_jax_params`: (params, aux) numpy trees of the
     networks `nets` holds, in the JAX layouts."""
     trees = {'params': {}, 'aux': {net: {} for net in nets.names}}
-    for coll, path, t, kind, _ in _entries(nets):
+    for coll, path, t, kind, _ in _entries(_networks(nets)):
         _set(trees[coll], path, to_jax_layout(t, kind, path[-1]))
     return trees['params'], trees['aux']
 
@@ -228,7 +250,7 @@ def random_jax_params(config: Config, seed: int = 0, gf_dim: int = 64,
                         critics=critics)
     rng = np.random.default_rng(seed)
     trees = {'params': {}, 'aux': {net: {} for net in nets.names}}
-    for coll, path, t, kind, _ in _entries(nets):
+    for coll, path, t, kind, _ in _entries(_networks(nets)):
         shape = tuple(t.shape)
         leaf = path[-1]
         perm = _PERM.get((kind, leaf))

@@ -26,9 +26,9 @@ when EDGEGAN_PALLAS_PRELU=1 and EDGEGAN_PALLAS_GATE=1 are set
   `-halt` and exit 1), 'ignore'.
 - `--profile_steps N` traces N steps from counter 2 with `torch.profiler`
   into `<logdir>/profile`.
-
-The TensorBoard summaries (`summaries.py`) are not ported: this trainer
-writes none yet.
+- TensorBoard events in `<logdir>` (`summaries.py`): the 11 losses every
+  step, and histograms and image grids from one sample forward on the
+  step's batch at `counter % summary_frequency == 0`.
 """
 from __future__ import annotations
 
@@ -46,6 +46,7 @@ from .. import checkpoint as ckpt
 from ..core.config import add_config_args, config_from_args
 from ..data.dataset import Dataset
 from ..data.loader import PrefetchLoader
+from ..summaries import SummaryWriter
 from ..train.networks import Networks
 from ..train.state import create_train_state
 from ..train.step import COMPUTE_DTYPES, make_draws, make_train_step
@@ -105,6 +106,7 @@ def main(argv=None):
     if loaded:
         metrics_log.write(json.dumps({'resumed_at': counter}) + '\n')
         metrics_log.flush()
+    tb = SummaryWriter(config.logdir, config)
 
     stop_requested = []
 
@@ -137,6 +139,7 @@ def main(argv=None):
         metrics_log.write(json.dumps(
             {'step': step_counter, 'epoch': epoch, **metrics}) + '\n')
         metrics_log.flush()
+        tb.scalars(step_counter, metrics)
         bad = sorted(k for k, v in metrics.items() if not math.isfinite(v))
         if bad and config.nan_policy != 'ignore':
             if not nan_streak:
@@ -177,6 +180,8 @@ def main(argv=None):
                 pending = (counter, epoch, idx, packed)
                 if halted:
                     break
+                if counter % config.summary_frequency == 0:
+                    tb.extras(counter, state, images, z)
                 if profiler is not None and counter >= profile_end:
                     _stop_profile(profiler, config.logdir, device)
                     profiler = None
@@ -202,6 +207,7 @@ def main(argv=None):
             _stop_profile(profiler, config.logdir, device)
         loader.close()
         metrics_log.close()
+        tb.close()
         for sig, handler in previous.items():
             signal.signal(sig, handler)
         ckpt.wait_for_async()  # a cadence save may still be writing

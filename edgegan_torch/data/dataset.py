@@ -1,11 +1,14 @@
 """File-glob dataset (reference utils/data/dataset.py; a copy of the JAX
-package's data/dataset.py:22-210, PIL decoding).
+package's data/dataset.py:22-210).
 
 Directory semantics kept exactly:
   train, multiclass:  <dataroot>/<name>/train/<classid>/*.{png,jpg}
   train, flat:        <dataroot>/<name>/train/*.png
   test:               <dataroot>/<name>/test/**/*.{png,jpg}, recursive,
                       sorted
+`subdir` replaces the split directory ('train' or 'test') and keeps the
+phase's listing, so that a train-style listing (class directories, z)
+can point at any split of paired images (`cli.evaluate --split`).
 In training the class id is parsed from the parent directory's name; the
 last partial batch is dropped (quirk Q10), unless `pad_tail` (test phase
 only), which pads it to a full batch with repeats of its last file,
@@ -19,7 +22,11 @@ not depend on which prefetch thread decodes the batch, followed by the
 class-id column; without it (the default) only the class-id column is
 returned and the train step draws z on the device.
 
-Waiting: the native C++ decoder (`native_loader.py`).
+Decoding: without crop or grayscale, a batch's PNGs already at the output
+size go through the native C++ decoder (`native_loader.py`), which gives
+the JAX dataset's float32 values bit for bit; every other file, and every
+file when the decoder cannot be built, is decoded with PIL (`get_image`,
+which rounds `x / 127.5 - 1` from float64).
 """
 from __future__ import annotations
 
@@ -40,7 +47,8 @@ class Dataset:
     def __init__(self, dataroot: str, name: str, size, batchsize: int,
                  config: dict, num_classes: Optional[int] = None,
                  cache: bool = False, seed: int = 0, host_z: bool = False,
-                 phase: str = 'train', pad_tail: bool = False):
+                 phase: str = 'train', pad_tail: bool = False,
+                 subdir: Optional[str] = None):
         """`config` holds input_height/width, output_height/width, crop,
         grayscale and (training) z_dim. `cache=True` keeps every decoded
         image in RAM after first use."""
@@ -58,8 +66,9 @@ class Dataset:
         self._z_base = seed
         self._shuffle_gen = 0
         self.rng = np.random.RandomState(seed)
+        subdir = subdir or phase
         if phase == 'test':
-            data_path = os.path.join(dataroot, name, 'test')
+            data_path = os.path.join(dataroot, name, subdir)
             self.data = sorted(str(p) for ext in ('*.png', '*.jpg')
                                for p in Path(data_path).rglob(ext))
         elif num_classes is not None:
@@ -67,10 +76,10 @@ class Dataset:
             for i in range(num_classes):
                 for ext in ('*.png', '*.jpg'):
                     self.data.extend(glob(os.path.join(
-                        dataroot, name, 'train', str(i), ext)))
-            data_path = os.path.join(dataroot, name, 'train')
+                        dataroot, name, subdir, str(i), ext)))
+            data_path = os.path.join(dataroot, name, subdir)
         else:
-            data_path = os.path.join(dataroot, name, 'train', '*.png')
+            data_path = os.path.join(dataroot, name, subdir, '*.png')
             self.data = glob(data_path)
         if not self.data:
             raise FileNotFoundError(f"[!] No data found in '{data_path}'")
@@ -88,19 +97,41 @@ class Dataset:
             return -(-self.size // self.batchsize)
         return self.size // self.batchsize  # drops the last partial batch
 
-    def _load(self, f):
-        img = self._cache.get(f) if self.cache else None
-        if img is None:
-            img = np.asarray(get_image(
-                f, input_height=self.config['input_height'],
-                input_width=self.config['input_width'],
-                resize_height=self.config['output_height'],
-                resize_width=self.config['output_width'],
-                crop=self.config['crop'],
-                grayscale=self.config['grayscale']), np.float32)
-            if self.cache:
-                self._cache[f] = img
-        return img
+    def _load_pil(self, f):
+        return np.asarray(get_image(
+            f, input_height=self.config['input_height'],
+            input_width=self.config['input_width'],
+            resize_height=self.config['output_height'],
+            resize_width=self.config['output_width'],
+            crop=self.config['crop'],
+            grayscale=self.config['grayscale']), np.float32)
+
+    def _native_eligible(self):
+        """The native decoder takes the no-crop, no-grayscale case (and
+        within it PNGs at the output size, file by file)."""
+        return not self.config['crop'] and not self.config['grayscale']
+
+    def _load_batch(self, files):
+        store = self._cache if self.cache else {}
+        missing = [f for f in files if f not in store]
+        if missing and self._native_eligible():
+            from . import native_loader
+            res = native_loader.decode_batch(
+                missing, self.config['output_height'],
+                self.config['output_width'])
+            if res is not None:
+                for f, img, bad in zip(missing, *res):
+                    if not bad:
+                        store[f] = img
+        out = []
+        for f in files:
+            img = store.get(f)
+            if img is None:
+                img = self._load_pil(f)
+                if self.cache:
+                    store[f] = img
+            out.append(img)
+        return np.stack(out)
 
     def __getitem__(self, idx):
         """-> (images [B, H, W, 3] float32 in [-1, 1], z [B, feed width]
@@ -108,7 +139,7 @@ class Dataset:
         test phase."""
         files = self.data[idx * self.batchsize:(idx + 1) * self.batchsize]
         n_pad = self.batchsize - len(files) if self.pad_tail else 0
-        images = np.stack([self._load(f) for f in files + files[-1:] * n_pad])
+        images = self._load_batch(files + files[-1:] * n_pad)
         if self.phase == 'test':
             return images, files + [self.PAD] * n_pad
         classes = None

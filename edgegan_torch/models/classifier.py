@@ -7,7 +7,9 @@ the matching pyramid level and the previous hidden state, stride 2), a
 last prelu, then two heads: a 1x1 patch output (`disc_head`, built but
 unused by the losses; its parameters still exist and are trained with
 zero gradients) and spatial mean -> spectral-normed dense `class_head`.
-Returns (disc, sigmoid(logits), logits).
+Returns (disc, sigmoid(logits), logits), and with `return_features` also
+the 768-d spatial mean fed to `class_head` (the classifier-FID features,
+`evaluation.py`).
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ class Classifier(nn.Module):
         self.disc_head = SNConv2D(hidden, 1, 1)
         self.class_head = SNDense(hidden, num_classes)
 
-    def forward(self, x):
+    def forward(self, x, return_features: bool = False):
         x_list = [x]
         for _ in range(5):
             x_list.append(mean_pool(x_list[-1]))
@@ -42,5 +44,8 @@ class Classifier(nn.Module):
             ht = getattr(self, f'mru_conv_unit_{unit}')(x_list[-unit], ht)
         ht = self.mru_conv_unit_last_prelu(ht)
         disc = self.disc_head(ht)
-        logits = self.class_head(ht.mean(dim=(2, 3)))
+        feat = ht.mean(dim=(2, 3))
+        logits = self.class_head(feat)
+        if return_features:
+            return disc, 1.0 / (1.0 + torch.exp(-logits)), logits, feat
         return disc, 1.0 / (1.0 + torch.exp(-logits)), logits

@@ -141,7 +141,8 @@ def _expected(data, params, aux, batch):
             for f, ok, panel in zip(files, mask, panels):
                 if ok:
                     out[os.path.join('ds', test_cli.name_with_class(f))] = \
-                        bytescale(inverse_transform(panel))
+                        bytescale(inverse_transform(panel)
+                                  .astype(np.float64))
     return out
 
 
