@@ -137,8 +137,25 @@ the package is missing, and on any failed check.
    128] held to their plain versions (two runs bitwise equal) and timed
    per call beside their bounds; K5 at the 9 hires PReLU shapes held and
    timed per call, and summed over a step's 42 calls.
-13. Prints one JSON line describing every kernel, then
+13. Parallel phase (data parallelism, `edgegan_torch.parallel`) at the
+   default configuration: `cli.train` under `torchrun --standalone
+   --nproc_per_node 1` (one rank over NCCL) for 3 steps and a resume;
+   the batch-64 faithful float32 step, switches off and on, under
+   torchrun at 1 rank (NCCL) and at 2 ranks sharing the card over gloo
+   (EDGEGAN_RANKS_PER_CARD=2; this script's `--parallel-worker` mode):
+   the ranks' parameters bitwise equal, the step held to this process's
+   one-process card step within 3x its own sensitivity, K1/K2 (K5, K3,
+   K4) launches per rank as planned, its time per step beside the
+   one-process step's; `cli.test --test_batch_size 16` at 2 ranks against
+   one process (the same files, PNGs within 1 byte); `serve` at 2 ranks
+   (max_batch 16, float32): /healthz's world size, a raw request held to
+   a one-process Batcher within 1e-3, the time per request of 16 beside
+   one process's, and both ranks gone after SIGINT to rank 0.
+14. Prints one JSON line describing every kernel, then
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
+
+`python3 chip_smoke.py --only NAME[,NAME]` runs those phases alone (after
+the build) and prints no result.
 """
 from __future__ import annotations
 
@@ -154,6 +171,8 @@ import tempfile
 import threading
 import time
 import traceback
+
+_IMPORTED = time.perf_counter()
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
@@ -175,7 +194,9 @@ K2_TOL = {'float32': dict(atol=1e-4, rtol=1e-4),
 # kernel and the plain version may each take either slope, so those
 # elements are left out of the comparison (and counted).
 GATE_BAND = 1e-4
-PROFILED_STEPS = 5
+PROFILED_STEPS = 2
+# the turns of the switches in the step-time phases
+STEP_TURNS = (False, True, True, False)
 K1_PER_STEP = 21   # 7 generator forwards (G1 alone for the encoder's input)
 K2_PER_STEP = 12   # 2 generator updates x (G1, G2) x 3 DeconvBlocks
 # The classifier at batch 64 on the 64x64 photo half, (C, H, W) with the
@@ -2012,14 +2033,16 @@ def _step_case(config, seed: int = 1):
     return params, aux, images, z, draws, jitter
 
 
-def _held_to_cpu(label, got, cpu, jittered, params):
+def _held_to_cpu(label, got, cpu, jittered, params, names=('card', 'cpu')):
     """Prints and checks one card step `got` = (metrics, params) against
-    the CPU step `cpu`: each metric within 3x the step's own sensitivity
-    + 1e-4 of max(1, |value|), each network's update within 3x it + 1e-3
-    of its norm. The sensitivity is the largest distance of a jittered
-    run from its own unjittered run, over `jittered`: ((run, base), ...).
-    Returns whether every difference is within its limit."""
+    the CPU step `cpu` (or any two steps, printed under `names`): each
+    metric within 3x the step's own sensitivity + 1e-4 of max(1,
+    |value|), each network's update within 3x it + 1e-3 of its norm. The
+    sensitivity is the largest distance of a jittered run from its own
+    unjittered run, over `jittered`: ((run, base), ...). Returns whether
+    every difference is within its limit."""
     import numpy as np
+    a, b = names
 
     def flat(p, net):
         return np.concatenate([a.ravel() for a in _leaves(p[net])])
@@ -2027,27 +2050,26 @@ def _held_to_cpu(label, got, cpu, jittered, params):
     ok = True
     got_m, got_p = got
     cpu_m, cpu_p = cpu
-    print(f' card step {label}:')
+    print(f' {a} step {label}:')
     for k in sorted(cpu_m):
         diff = abs(got_m[k] - cpu_m[k])
         own = max(abs(run[0][k] - base[0][k]) for run, base in jittered)
         limit = 3 * own + 1e-4 * max(1.0, abs(cpu_m[k]))
         ok &= diff <= limit
-        print(f'  {k}: card {got_m[k]:.6g} cpu {cpu_m[k]:.6g}, diff '
+        print(f'  {k}: {a} {got_m[k]:.6g} {b} {cpu_m[k]:.6g}, diff '
               f'{diff:.3g}, under 1e-6 input jitter {own:.3g}, limit '
               f'{limit:.3g}')
     for net in sorted(cpu_p):
         start = np.concatenate([a.ravel() for a in _leaves(params[net])])
-        upd = {'card': flat(got_p, net) - start,
-               'cpu': flat(cpu_p, net) - start}
-        norm = np.linalg.norm(upd['cpu'])
-        diff = np.linalg.norm(upd['card'] - upd['cpu'])
+        upd = {a: flat(got_p, net) - start, b: flat(cpu_p, net) - start}
+        norm = np.linalg.norm(upd[b])
+        diff = np.linalg.norm(upd[a] - upd[b])
         own = max(np.linalg.norm(flat(run[1], net) - flat(base[1], net))
                   for run, base in jittered)
         limit = 3 * own + 1e-3 * norm
         ok &= diff <= limit
-        print(f'  {net} update: |cpu| {norm:.4g}, |card - cpu| {diff:.3g} '
-              f'(max abs {np.abs(upd["card"] - upd["cpu"]).max():.3g}), '
+        print(f'  {net} update: |{b}| {norm:.4g}, |{a} - {b}| {diff:.3g} '
+              f'(max abs {np.abs(upd[a] - upd[b]).max():.3g}), '
               f'jittered run vs its own {own:.3g}, limit {limit:.3g}')
     return ok
 
@@ -2096,8 +2118,8 @@ def card_vs_cpu_phase(card: str):
 def step_time_phase(card: str, update_mode: str = 'faithful'):
     """Time per training step (`update_mode` 'faithful' or 'fast') at the
     default batch 64 on a staged batch, in float32 and bfloat16, each with
-    the classifier switches off and on in turns (off, on, on, off, off,
-    on: 5 steps a turn, 15 per setting), then the optimizer-group split
+    the classifier switches off and on in turns (STEP_TURNS: off, on, on,
+    off; 5 steps a turn, 10 per setting), then the optimizer-group split
     and the profile of each of the four settings. Returns {(dtype,
     switches): (CUDA-event ms, host ms, peak GiB)} and the profiles' device
     ms per step by kernel (None where the profile recorded fewer of its
@@ -2135,7 +2157,7 @@ def step_time_phase(card: str, update_mode: str = 'faithful'):
             step(state, images, z, draws)
 
         turns = {False: [], True: []}
-        for switches in (False, True, True, False, False, True):
+        for switches in STEP_TURNS:
             with classifier_switches(switches):
                 torch.cuda.reset_peak_memory_stats()
                 ms = cuda_ms(one, 5, warmup=1)
@@ -2151,10 +2173,11 @@ def step_time_phase(card: str, update_mode: str = 'faithful'):
             times[(dtype, switches)] = (ms, host_ms, max(v[2] for v in got))
             print(f'time per training step at batch {b} {dtype}, classifier '
                   f'switches {"on" if switches else "off"} ({update_mode}, '
-                  f'{len(spans)} updates): {ms:.3f} ms (CUDA events, 3 turns '
-                  f'of 5 back to back: ' + ', '.join(f'{t[0]:.3f}' for t in got)
-                  + f'), {host_ms:.3f} ms one at a time (host clock, 9 '
-                  f'steps); peak device memory '
+                  f'{len(spans)} updates): {ms:.3f} ms (CUDA events, '
+                  f'{len(got)} turns of 5 back to back: '
+                  + ', '.join(f'{t[0]:.3f}' for t in got)
+                  + f'), {host_ms:.3f} ms one at a time (host clock, '
+                  f'{3 * len(got)} steps); peak device memory '
                   f'{times[(dtype, switches)][2]:.2f} GiB [{card}]')
         for switches in (False, True):
             label = (f'{update_mode} {dtype}, switches '
@@ -2665,7 +2688,7 @@ GROUP_SPANS = {
                             'encoder E (on the step-start fake)']}
 
 
-def group_split(card: str, step, spans, n: int = 5):
+def group_split(card: str, step, spans, n: int = 3):
     """Device time per optimizer group of a training step: a CUDA event is
     recorded after every RMSProp update (one per group and generator, as
     named in `spans`), so the time between two events is one group's
@@ -2746,6 +2769,491 @@ def profile_steps(card: str, label: str, step, n: int = 10,
               f'{name[:90]}')
     return ({k: v / n / 1e3 for k, v in by_name.items()},
             {k: v / n for k, v in calls.items()})
+
+
+# ---- data parallelism: torchrun ranks on the one card ----
+
+PARALLEL_RANKS = 2
+PARALLEL_TIMED_STEPS = 3
+PARALLEL_TIMEOUT_S = 600
+
+
+def _rank_env(extra=None):
+    """This environment for the ranks: the collective timeout, and the
+    repository on the import path (the ranks may start elsewhere)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return {**os.environ, 'EDGEGAN_DIST_TIMEOUT': '300',
+            'PYTHONPATH': os.pathsep.join(
+                [root, os.environ.get('PYTHONPATH', '')]), **(extra or {})}
+
+
+def _finish(procs, label, timeout=PARALLEL_TIMEOUT_S):
+    """Wait for `procs` (each the leader of its own process group); kill
+    every group left at the timeout. Returns their outputs; fails unless
+    every one exits 0."""
+    import signal
+    outs = []
+    deadline = time.time() + timeout
+    try:
+        for p in procs:
+            left = max(1, deadline - time.time())
+            outs.append(p.communicate(timeout=left)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f'{label}: process {r} exited '
+              f'{p.returncode}:\n{out[-6000:]}')
+    return outs
+
+
+def torchrun(nproc: int, args, label: str, env=None,
+             timeout=PARALLEL_TIMEOUT_S) -> str:
+    """`python -m torch.distributed.run --standalone --nproc_per_node
+    nproc <args>` to its end; returns its output, fails on a non-zero
+    exit."""
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+         f'--nproc_per_node={nproc}', *args], env=_rank_env(env),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    return _finish([proc], label, timeout)[0]
+
+
+def spawn_ranks(nproc: int, args, env=None):
+    """`args` once per rank with torchrun's environment (RANK, WORLD_SIZE,
+    LOCAL_RANK, MASTER_ADDR/PORT on loopback), each in its own process
+    group, so that each can be signalled alone."""
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    return [subprocess.Popen(
+        args, env=_rank_env({**(env or {}), 'RANK': str(r),
+                             'WORLD_SIZE': str(nproc), 'LOCAL_RANK': str(r),
+                             'LOCAL_WORLD_SIZE': str(nproc),
+                             'MASTER_ADDR': '127.0.0.1',
+                             'MASTER_PORT': str(port)}),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True) for r in range(nproc)]
+
+
+def _skip_all_reduce(spent):
+    """A gradient all-reduce that does nothing: at one rank it gives the
+    same result, so the step's time without its collectives."""
+    return lambda tensors: None
+
+
+def _timed_all_reduce(spent):
+    """The gradient all-reduce, synchronised before and after, its wall
+    seconds appended to `spent`."""
+    import torch
+
+    from edgegan_torch import parallel
+    inner = parallel.all_reduce_mean_
+
+    def timed(tensors):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner(tensors)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+    return timed
+
+
+def _time_steps(step, n: int):
+    """(CUDA-event ms, host ms) per step of `n` back-to-back `step()`s."""
+    import torch
+
+    from edgegan_torch import parallel
+    torch.cuda.synchronize()
+    parallel.barrier('timed steps')
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n, (time.perf_counter() - t0) * 1e3 / n
+
+
+def dp_step_run(config, case, device, on: bool, timed: int = 0,
+                jittered: bool = False, probe=None):
+    """One faithful step of `config` from `_step_case`'s weights and
+    inputs on this rank's rows (all of them without a process group),
+    with the classifier switches `on`: the metrics averaged over the
+    ranks, the parameters after it (JAX layout), the launches of that
+    step, and with `timed` the ms per step of `timed` more steps on the
+    card (CUDA events) and on the host clock; with `probe` (a function of
+    a list that makes a stand-in for `parallel.all_reduce_mean_`, such as
+    `_skip_all_reduce`) `timed` more steps with the stand-in, and the
+    seconds it appended to the list, in ms per step."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from edgegan_torch import bridge, parallel
+    from edgegan_torch.ops import kernels
+    from edgegan_torch.train.networks import Networks
+    from edgegan_torch.train.state import broadcast_state, create_train_state
+    from edgegan_torch.train.step import Draws, make_train_step
+
+    params, aux, images, z, draws, jitter = case
+    if jittered:
+        images, draws = jitter(images), dict(draws, z=jitter(draws['z']))
+
+    def rows(a):
+        return parallel.local_rows(torch.from_numpy(np.asarray(a)).to(device))
+    with classifier_switches(on):
+        nets = bridge.load_jax_params(Networks(config, critics=True), params,
+                                      aux).to(device)
+        state = broadcast_state(create_train_state(nets))
+        step = make_train_step(nets, config)
+        d = Draws(alpha={k: rows(v) for k, v in draws['alpha'].items()},
+                  eps=torch.tensor(draws['eps'], device=device),
+                  z=rows(draws['z']))
+        x, zz = rows(images), rows(z)
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        _, metrics = step(state, x, zz, d)
+        counts = dict(kernels.LAUNCHES)
+        names = sorted(metrics)
+        packed = torch.stack([metrics[k] for k in names])
+        parallel.all_reduce_mean_([packed])
+        out = {'metrics': dict(zip(names, packed.tolist())),
+               'params': bridge.export_jax_params(nets)[0],
+               'launches': counts}
+        if timed:
+            out['ms'], out['host_ms'] = _time_steps(
+                lambda: step(state, x, zz, d), timed)
+        if timed and probe is not None:
+            spent = []
+            with mock.patch.object(parallel, 'all_reduce_mean_',
+                                   probe(spent)):
+                out['probe_ms'], _ = _time_steps(
+                    lambda: step(state, x, zz, d), timed)
+            out['probe_spent_ms'] = 1e3 * sum(spent) / timed
+    return out
+
+
+def _digest(params) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for leaf in _leaves(params):
+        h.update(leaf.tobytes())
+    return h.hexdigest()
+
+
+def parallel_worker(directory: str, module: str = None, *argv):
+    """One rank of the `parallel` phase (run under torchrun): the batch-64
+    faithful float32 step with the switches off and on, each rank on its
+    rows; writes rank<r>.json (metrics, launches, times, a digest of the
+    parameters, the seconds from this script's import to the group and
+    to the end of the first step) and, on rank 0, params_<off|on>.npz.
+    Then, in the same group, `module`'s `main(argv)` when given (an entry
+    point: one launch fewer to pay for)."""
+    import importlib
+
+    import numpy as np
+
+    from edgegan_torch import bridge, parallel
+    from edgegan_torch.core.config import Config
+
+    device = parallel.init('cuda')
+    try:
+        out = {'init_s': time.perf_counter() - _IMPORTED}
+        config = Config().derive('train')
+        case = _step_case(config)
+        rank = parallel.rank()
+        probe = (_skip_all_reduce if parallel.world_size() == 1
+                 else _timed_all_reduce)
+        for on in (False, True):
+            run = dp_step_run(config, case, device, on, PARALLEL_TIMED_STEPS,
+                              probe=probe)
+            key = 'on' if on else 'off'
+            out.setdefault('first_step_s', time.perf_counter() - _IMPORTED)
+            if rank == 0:
+                np.savez(os.path.join(directory, f'params_{key}.npz'),
+                         **bridge.flatten_npz(params=run['params']))
+            out[key] = {'digest': _digest(run['params']),
+                        **{k: run[k] for k in (
+                            'metrics', 'launches', 'ms', 'host_ms',
+                            'probe_ms', 'probe_spent_ms')}}
+        out['world'] = parallel.world_size()
+        with open(os.path.join(directory, f'rank{rank}.json'), 'w') as f:
+            json.dump(out, f)
+        if module:
+            importlib.import_module(module).main(list(argv))
+    finally:
+        parallel.shutdown()
+
+
+def _healthz(port: int):
+    conn = http.client.HTTPConnection('127.0.0.1', port, timeout=10)
+    try:
+        conn.request('GET', '/healthz')
+        return json.loads(conn.getresponse().read())
+    finally:
+        conn.close()
+
+
+def parallel_phase(card: str, tmp: str):
+    """Data parallelism on the card at full width (the default
+    configuration: 64x128 pairs, batch 64, 14 classes, gf_dim 64).
+
+    - `cli.train` under `torchrun --standalone --nproc_per_node 1` (NCCL,
+      one rank): 3 steps with a cadence save at counter 2, then a resume.
+    - The batch-64 faithful float32 step at 1 rank over NCCL and at 2
+      ranks sharing the card over gloo (EDGEGAN_RANKS_PER_CARD=2, 32 rows a
+      rank), switches off and on: each rank's parameters after the step
+      bitwise equal, the 2-rank step held to this process's one-process
+      card step within 3x the step's own sensitivity (`_held_to_cpu`: the
+      same step on inputs moved by 1e-6), K1/K2 (and with the switches K5,
+      K3, K4) launches per rank as `expected_launches` plans them; the
+      time per step of each beside the one-process step's.
+    - `cli.test --test_batch_size 16` from the NCCL run's checkpoint at 2
+      ranks against one process: the same files, PNGs within 1 byte.
+    - `serve` at 2 ranks, max_batch 16, float32 transfer: /healthz's world
+      size, a raw request of 8 held to a one-process Batcher on the same
+      weights within 1e-3, and the time per request of 16 beside a
+      one-process server's (host clock, HTTP on loopback).
+    Returns the launches per rank of the steps under torchrun."""
+    import math
+    import signal
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from edgegan_torch import bridge, serve
+    from edgegan_torch import checkpoint as ckpt
+    from edgegan_torch.cli import test as test_cli
+    from edgegan_torch.core.config import Config
+    from edgegan_torch.train.networks import Networks
+    from edgegan_torch.utils.metrics_io import (read_metrics,
+                                                read_resume_markers)
+
+    config = Config().derive('train')
+    h, w = config.output_height, config.output_width
+    root = os.path.join(tmp, 'parallel_data')
+    write_dataset(root, config.batch_size, config.num_classes, h, w, seed=5)
+    valid = write_test_tree(root, 2, config.num_classes, h, w, seed=6)
+    out = os.path.join(tmp, 'parallel_out')
+    base = ['--dataroot', root, '--dataset', 'ds', '--outputsroot', out,
+            '--name', 'dp']
+    share = {'EDGEGAN_RANKS_PER_CARD': str(PARALLEL_RANKS)}
+
+    # 1. cli.train under torchrun, one rank over NCCL: 3 steps
+    train = ['edgegan_torch.cli.train', *base,
+             '--save_checkpoint_frequency', '3']
+    t0 = time.perf_counter()
+    log = torchrun(1, ['-m', *train, '--epoch', '3'],
+                   'cli.train under torchrun')
+    print(f'cli.train under torchrun --nproc_per_node 1 (NCCL), 3 steps: '
+          f'{time.perf_counter() - t0:.3f} s with start-up (host clock) '
+          f'[{card}]')
+    check(' [*] data parallel: 1 ranks over nccl' in log,
+          f'no NCCL group: {log[-3000:]}')
+    ckpt_dir = os.path.join(out, 'dp', 'checkpoints')
+    check(ckpt.steps(ckpt_dir) == [2], f'checkpoints {ckpt.steps(ckpt_dir)}')
+
+    # 2. the step in this process, at 1 rank over NCCL (then the resume of
+    # 1. in the same launch), at 2 ranks over gloo on the one card (then
+    # cli.test --test_batch_size 16 in the same launch)
+    case = _step_case(config)
+    one = {}
+    for on in (False, True):
+        one[on] = dp_step_run(config, case, 'cuda', on, PARALLEL_TIMED_STEPS)
+        one[on]['jittered'] = dp_step_run(config, case, 'cuda', on,
+                                          jittered=True)
+    test = base + ['--test_batch_size', '16']
+    t0 = time.perf_counter()
+    test_cli.main(test)
+    one_test_s = time.perf_counter() - t0
+    out2 = os.path.join(tmp, 'parallel_out2')
+    os.makedirs(os.path.join(out2, 'dp'))
+    os.symlink(ckpt_dir, os.path.join(out2, 'dp', 'checkpoints'))
+    then = {1: [*train, '--epoch', '1'],
+            PARALLEL_RANKS: ['edgegan_torch.cli.test'] + [
+                out2 if a == out else a for a in test]}
+    ranks = {}
+    for n in (1, PARALLEL_RANKS):
+        d = os.path.join(tmp, f'parallel_step_{n}')
+        os.makedirs(d)
+        t0 = time.perf_counter()
+        log = torchrun(n, [os.path.abspath(__file__), '--parallel-worker', d,
+                           *then[n]], f'the step at {n} ranks',
+                       share if n > 1 else None)
+        wall = time.perf_counter() - t0
+        res = []
+        for r in range(n):
+            with open(os.path.join(d, f'rank{r}.json')) as f:
+                res.append(json.load(f))
+        ranks[n] = (d, res, wall, log)
+        print(f'{n} ranks under torchrun: the group made '
+              f'{res[0]["init_s"]:.1f} s and the first step done '
+              f'{res[0]["first_step_s"]:.1f} s after the script\'s import on '
+              f'rank 0; the launch with its entry point {wall:.1f} s (host '
+              f'clock) [{card}]')
+
+    logdir = os.path.join(out, 'dp', 'logs', 'metrics.jsonl')
+    rows = read_metrics(logdir)
+    check([r['step'] for r in rows] == [2, 3, 4] and
+          read_resume_markers(logdir) == [2], f'NCCL run steps {rows}, '
+          f'resumes {read_resume_markers(logdir)}')
+    check(all(math.isfinite(v) for r in rows for v in r.values()),
+          'NCCL run: a metric is not finite')
+    print('cli.train under torchrun (NCCL, 1 rank): 3 steps, the cadence '
+          'checkpoint 2, then the resume at counter 2, every metric finite')
+    launches = {}
+    for on in (False, True):
+        key = 'on' if on else 'off'
+        want = expected_launches('faithful', torch.float32, on)
+        base_ms = one[on]
+        for n, (d, res, wall, _) in ranks.items():
+            check(res[0]['world'] == n, f'{n} ranks: world {res[0]["world"]}')
+            check(len({r[key]['digest'] for r in res}) == 1,
+                  f'{n} ranks, switches {key}: the parameters differ '
+                  'between ranks')
+            for r, got in enumerate(res):
+                check(got[key]['launches'] == want, f'{n} ranks, rank {r}, '
+                      f'switches {key}: launches {got[key]["launches"]}, '
+                      f'expected {want}')
+                launches[f'parallel step, {n} ranks, rank {r}, switches '
+                         f'{key}'] = got[key]['launches']
+            with np.load(os.path.join(d, f'params_{key}.npz')) as f:
+                params = bridge.unflatten_npz(f)['params']
+            ok = _held_to_cpu(
+                f'{n} ranks, switches {key}, against one process',
+                (res[0][key]['metrics'], params),
+                (base_ms['metrics'], base_ms['params']),
+                [((base_ms['jittered']['metrics'],
+                   base_ms['jittered']['params']),
+                  (base_ms['metrics'], base_ms['params']))], case[0],
+                names=(f'{n} ranks', 'one process'))
+            check(ok, f'the {n}-rank step differs from one process beyond '
+                  'the limits')
+            print(f'faithful float32 step at batch 64, switches {key}: '
+                  f'{n} ranks ({"gloo, one card" if n > 1 else "NCCL"}) '
+                  + ', '.join(f'rank {r} {g[key]["ms"]:.2f} ms '
+                              f'(host {g[key]["host_ms"]:.2f})'
+                              for r, g in enumerate(res))
+                  + f'; one process {base_ms["ms"]:.2f} ms (host '
+                  f'{base_ms["host_ms"]:.2f}); CUDA events over '
+                  f'{PARALLEL_TIMED_STEPS} steps after the first; the '
+                  'parameters bitwise equal on every rank; launches per '
+                  f'rank as planned [{card}]')
+            g = res[0][key]
+            if n == 1:
+                print(f'  1 rank, switches {key}: {g["probe_ms"]:.2f} ms a '
+                      f'step with the gradient all-reduces skipped, against '
+                      f'{g["ms"]:.2f} with them (CUDA events, the same '
+                      f'process, {PARALLEL_TIMED_STEPS} steps each) [{card}]')
+            else:
+                print(f'  {n} ranks, switches {key}: the 7 gradient '
+                      f'all-reduces {g["probe_spent_ms"]:.2f} ms of a '
+                      f'{g["probe_ms"]:.2f} ms step on rank 0 (each '
+                      f'synchronised before and after, host clock; CUDA '
+                      f'events over the step) [{card}]')
+
+    # 3. cli.test at 2 ranks (run in 2.) against one process
+    check(' [*] sharding inference over 2 ranks' in ranks[PARALLEL_RANKS][3],
+          ranks[PARALLEL_RANKS][3][-3000:])
+    trees = [os.path.join(o, 'dp', 'test_output', 'ds') for o in (out, out2)]
+    files = [sorted(os.path.relpath(os.path.join(dd, f), t)
+                    for dd, _, fs in os.walk(t) for f in fs) for t in trees]
+    check(files[0] == files[1] == valid, f'cli.test trees: {len(files[0])} '
+          f'and {len(files[1])} files, expected {len(valid)}')
+    diff = max(int(np.abs(
+        np.asarray(Image.open(os.path.join(trees[0], f)), np.int16)
+        - np.asarray(Image.open(os.path.join(trees[1], f)), np.int16)).max())
+        for f in valid)
+    check(diff <= 1, f'cli.test at 2 ranks: a PNG differs by {diff}')
+    print(f'cli.test --test_batch_size 16, {len(valid)} of {len(valid) + 2} '
+          f'files: 2 ranks the one-process tree, largest byte difference '
+          f'{diff} (limit 1); one process {one_test_s:.3f} s (host clock, '
+          f'in this process) [{card}]')
+
+    # 4. serve at 2 ranks against one process
+    tcfg = Config().derive('test')
+    _, _, trees_ckpt = ckpt.load_raw(ckpt_dir)
+    nets = bridge.load_jax_params(Networks(tcfg), trees_ckpt['params'],
+                                  trees_ckpt['aux'])
+    rng = np.random.RandomState(7)
+    raw8 = rng.uniform(-1, 1, (8, h, w, 3)).astype('<f4')
+    raw16 = rng.uniform(-1, 1, (16, h, w, 3)).astype('<f4')
+    ids8 = ','.join(str(i % tcfg.num_classes) for i in range(8))
+    ids16 = ','.join(str(i % tcfg.num_classes) for i in range(16))
+    n_timed = 10
+
+    def timed_requests(port):
+        t0 = time.perf_counter()
+        for _ in range(n_timed):
+            status, _ = _post(port, f'/generate?class_id={ids16}&raw=1&n=16',
+                              raw16.tobytes())
+            check(status == 200, f'HTTP {status}')
+        return (time.perf_counter() - t0) * 1e3 / n_timed
+
+    batcher = serve.Batcher(nets, tcfg, max_batch=16, seed=tcfg.seed,
+                            transfer_dtype='float32', device='cuda')
+    server = serve.make_server(tcfg, batcher, 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port = server.server_address[1]
+        warm = batcher.submit(np.zeros((h, w, 3), np.float32), 0)
+        check(not isinstance(warm.get(timeout=600), Exception), 'warm-up')
+        status, body = _post(port, f'/generate?class_id={ids8}&raw=1&n=8',
+                             raw8.tobytes())
+        check(status == 200, f'one process: HTTP {status}')
+        want = np.frombuffer(body, '<f4').reshape(8, h, w // 2, 3)
+        one_ms = timed_requests(port)
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.stop()
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = spawn_ranks(PARALLEL_RANKS, [
+        sys.executable, '-m', 'edgegan_torch.serve', '--outputsroot', out,
+        '--name', 'dp', '--serve_batch', '16', '--transfer_dtype', 'float32',
+        '--port', str(port)], share)
+    try:
+        health = None
+        while health is None and time.perf_counter() - t0 < 300:
+            check(all(p.poll() is None for p in procs), 'a serving rank '
+                  'exited')
+            try:
+                health = _healthz(port)
+            except OSError:
+                time.sleep(0.5)
+        ready = time.perf_counter() - t0
+        check(health is not None and health['world_size'] == PARALLEL_RANKS,
+              f'/healthz: {health}')
+        status, body = _post(port, f'/generate?class_id={ids8}&raw=1&n=8',
+                             raw8.tobytes())
+        check(status == 200, f'2 ranks: HTTP {status}')
+        got = np.frombuffer(body, '<f4').reshape(8, h, w // 2, 3)
+        two_ms = timed_requests(port)
+    finally:
+        procs[0].send_signal(signal.SIGINT)
+    _finish(procs, 'serve at 2 ranks', 120)
+    err = float(np.abs(got - want).max())
+    check(err <= 1e-3, f'serve at 2 ranks vs one process: {err}')
+    print(f'serve at 2 ranks (gloo, one card): ready in {ready:.2f} s, '
+          f'/healthz world_size {health["world_size"]}; a raw request of 8 '
+          f'within {err:.3g} of one process (limit 1e-3); {n_timed} raw '
+          f'requests of 16: {two_ms:.2f} ms each at 2 ranks, {one_ms:.2f} '
+          f'ms in one process (host clock, HTTP on loopback); both ranks '
+          f'left after SIGINT to rank 0 [{card}]')
+    return launches
 
 
 def _kernel_entry(name, source, replaces, sums, scale, launches,
@@ -2831,8 +3339,12 @@ def main() -> int:
           f'(nvcc {_build.build_seconds} s) [{card}]')
 
     results, failed = {}, []
+    only = (set(sys.argv[2].split(',')) if sys.argv[1:2] == ['--only']
+            else None)
 
     def phase(name, fn, *args):
+        if only is not None and name not in only:
+            return
         t = time.perf_counter()
         try:
             results[name] = fn(*args)
@@ -2862,10 +3374,15 @@ def main() -> int:
         phase('variants', variants_phase, card, tmp)
         phase('hires', hires_phase, card, tmp)
         phase('host_cost', host_cost_phase, card)
+        phase('parallel', parallel_phase, card, tmp)
     if failed:
         print(f'chip_smoke: failed phases: {", ".join(failed)}',
               file=sys.stderr)
         return 1
+    if only is not None:
+        print(f'chip_smoke: phases {", ".join(sorted(only))} passed; no '
+              'result printed for a partial run')
+        return 0
 
     k1_err, k1_sums, k1_prev = results['K1']
     k2_err, k2_sums, k2_prev = results['K2']
@@ -2876,7 +3393,7 @@ def main() -> int:
     train_launches, extras_ms = results['train']
     e_launches, e_results = results['evaluate']
     train_runs = {**train_launches, **results['lifecycle'], **v_launches,
-                  **h_launches, **e_launches}
+                  **h_launches, **e_launches, **results['parallel']}
 
     def per_call(kname):
         """K1-K4's per-call times at this slice's new planes: the convnet
@@ -3010,4 +3527,7 @@ def main() -> int:
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    if sys.argv[1:2] == ['--parallel-worker']:
+        parallel_worker(*sys.argv[2:])
+    else:
+        sys.exit(main())

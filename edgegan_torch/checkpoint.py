@@ -22,6 +22,14 @@ reader never sees half of one.
   `load`, `steps` and retention never see; only the newest is kept.
 - `prune_nonfinite_checkpoints` deletes the non-finite tail of a
   diverged run's entries.
+- Data parallelism (`parallel`, two or more ranks): every rank calls the
+  saves at the same counters; rank 0 alone writes, prunes and runs the
+  asynchronous save, and every rank waits at a barrier until a save it
+  waits for is in place (`save`, `save_halt`, `wait_for_async`). `load`
+  reads on rank 0, which picks the newest finite entry and broadcasts
+  its counter, so no rank can pick another while a save is in flight;
+  the caller then broadcasts rank 0's state
+  (`train.state.broadcast_state`).
 
 Waiting: loading a JAX (Orbax) checkpoint.
 """
@@ -37,7 +45,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from . import bridge
+from . import bridge, parallel
 from .train.state import TrainState
 
 MODEL_NAME = 'EdgeGAN-Model'
@@ -107,21 +115,26 @@ def save(checkpoint_dir: str, step: int, state: TrainState, keep: int = 5):
     """Save `state` under the counter `step`, then apply retention. Waits
     for an asynchronous save in flight first."""
     wait_for_async()
-    os.makedirs(checkpoint_dir, exist_ok=True)
-    _write(_ckpt_path(checkpoint_dir, step), state_trees(state))
-    _retain(checkpoint_dir, keep)
+    if parallel.is_process_zero():
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        _write(_ckpt_path(checkpoint_dir, step), state_trees(state))
+        _retain(checkpoint_dir, keep)
+    parallel.barrier('checkpoint saved')
 
 
 def save_halt(checkpoint_dir: str, step: int, state: TrainState):
     """Save a nan_policy=halt state under `EdgeGAN-Model-<step>-halt`,
     keeping only this newest halt entry."""
     wait_for_async()
-    os.makedirs(checkpoint_dir, exist_ok=True)
-    _write(_ckpt_path(checkpoint_dir, step) + HALT_SUFFIX, state_trees(state))
-    for old in halt_steps(checkpoint_dir):
-        if old != step:
-            shutil.rmtree(_ckpt_path(checkpoint_dir, old) + HALT_SUFFIX,
-                          ignore_errors=True)
+    if parallel.is_process_zero():
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        _write(_ckpt_path(checkpoint_dir, step) + HALT_SUFFIX,
+               state_trees(state))
+        for old in halt_steps(checkpoint_dir):
+            if old != step:
+                shutil.rmtree(_ckpt_path(checkpoint_dir, old) + HALT_SUFFIX,
+                              ignore_errors=True)
+    parallel.barrier('halt checkpoint saved')
 
 
 # One writer thread, so one save in flight (made at the first submit,
@@ -141,22 +154,25 @@ def save_async(checkpoint_dir: str, step: int, state: TrainState,
     them later. Callers call `wait_for_async()` before they exit."""
     global _inflight
     wait_for_async()
-    os.makedirs(checkpoint_dir, exist_ok=True)
-    future = _writer.submit(_write, _ckpt_path(checkpoint_dir, step),
-                            state_trees(state))
-    _inflight = (future, checkpoint_dir, keep)
+    if parallel.is_process_zero():
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        future = _writer.submit(_write, _ckpt_path(checkpoint_dir, step),
+                                state_trees(state))
+        _inflight = (future, checkpoint_dir, keep)
 
 
-def wait_for_async():
+def wait_for_async(barrier: bool = True):
     """Block until the save in flight, if any, is in place, then apply its
-    retention (never while its own entry is being written). Raises what
-    its write raised."""
+    retention (never while its own entry is being written), and with
+    `barrier` wait there for every rank. Raises what its write raised."""
     global _inflight
     pending, _inflight = _inflight, None
     if pending is not None:
         future, checkpoint_dir, keep = pending
         future.result()
         _retain(checkpoint_dir, keep)
+    if barrier:
+        parallel.barrier('asynchronous checkpoint in place')
 
 
 def read(checkpoint_dir: str, step: int):
@@ -202,12 +218,18 @@ def load(checkpoint_dir: str, state: TrainState
          ) -> Tuple[bool, int, Optional[TrainState]]:
     """Restore the newest readable, finite entry into `state` (in place);
     returns (loaded, counter, state), or (False, 0, None) when there is
-    none, as the reference's load() does (models/edgegan.py:641-657)."""
-    found = _newest_readable(checkpoint_dir)
-    if found is None:
+    none, as the reference's load() does (models/edgegan.py:641-657).
+    At two or more ranks rank 0 reads and restores, and every rank
+    returns its counter; the other ranks' `state` is restored by the
+    caller's `broadcast_state`."""
+    found = None
+    if parallel.is_process_zero():
+        found = _newest_readable(checkpoint_dir)
+        if found is not None:
+            apply(state, found[1], found[2])
+    step = parallel.broadcast_object(None if found is None else found[0])
+    if step is None:
         return False, 0, None
-    step, trees, saved_step = found
-    apply(state, trees, saved_step)
     return True, step, state
 
 

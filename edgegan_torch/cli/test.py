@@ -23,6 +23,14 @@ image under `test_output_dir/<dataset>/`, in the image's class directory:
   drawn for every batch, so that a batch's noise depends on its index
   only.
 
+Data parallelism: under `torchrun --nproc_per_node N` with
+`--test_batch_size` divisible by N (and `--data_parallel`, the default),
+each rank decodes, computes and writes its rows of every batch, with the
+batch-norm statistics over the whole batch (`parallel.synced_batch_stats`),
+so the output tree is a one-process run's. Otherwise (batch-1 parity mode
+among them) rank 0 runs the whole test set alone and the other ranks
+leave. Rank 0 prints.
+
 The outputs of a batch are pulled to the host after the next batch's
 forward has been queued, so the card computes while the host writes.
 With `--dtype bfloat16` the batched mode computes in bfloat16, as the
@@ -39,6 +47,7 @@ import numpy as np
 import torch
 
 from .. import checkpoint as ckpt
+from .. import parallel
 from ..bridge import load_jax_params
 from ..core.config import add_config_args, config_from_args
 from ..data.dataset import Dataset
@@ -103,7 +112,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser('edgegan_torch.cli.test')
     add_config_args(parser, 'test')
     parser.add_argument('--device', choices=('cuda', 'cpu'), default='cuda',
-                        help='cuda (the card cuda:<gpu>) or cpu')
+                        help='cuda (the card cuda:<gpu>, under a launcher '
+                             'cuda:<LOCAL_RANK>) or cpu')
     args = parser.parse_args(argv)
     config = config_from_args(args).derive('test')
     if config.output_combination == 'outputL_inputR':
@@ -112,10 +122,27 @@ def main(argv=None):
         raise SystemExit(
             "output_combination 'outputL_inputR' is broken in the "
             'reference (undefined inputR, models/edgegan.py:613-614)')
-    device = torch.device(config.device(args.device))
-    if device.type == 'cuda':
-        torch.cuda.set_device(device)
+    device = parallel.init(args.device, config.gpu, config.data_parallel)
+    try:
+        if parallel.world_size() > 1 and not (
+                config.test_batch_size
+                and config.test_batch_size % parallel.world_size() == 0):
+            # rank 0 alone: leave the group first, so that no collective
+            # waits for the ranks that leave
+            alone = parallel.is_process_zero()
+            parallel.shutdown()
+            if not alone:
+                return
+        _test(config, device)
+    finally:
+        parallel.shutdown()
 
+
+def _test(config, device):
+    p0 = parallel.is_process_zero()
+    world = parallel.world_size()
+    if world > 1 and p0:
+        print(f' [*] sharding inference over {world} ranks')
     makedirs(os.path.join(config.test_output_dir, config.dataset))
     batch = config.test_batch_size or 1
     dataset = Dataset(
@@ -124,14 +151,22 @@ def main(argv=None):
              output_height=config.output_height,
              output_width=config.output_width, crop=config.crop,
              grayscale=False),
-        phase='test', pad_tail=bool(config.test_batch_size))
+        phase='test', pad_tail=bool(config.test_batch_size),
+        shard=(parallel.rank(), world))
 
-    loaded, _, trees = ckpt.load_raw(config.checkpoint_dir)
-    if not loaded:
+    # rank 0 picks the entry and every rank reads that one, even if a
+    # trainer finishes a newer one meanwhile
+    loaded, step, trees = (ckpt.load_raw(config.checkpoint_dir) if p0
+                           else (False, 0, None))
+    step = parallel.broadcast_object(step if loaded else None)
+    if step is None:
         print(' [!] Load failed...')
         return
+    if trees is None:
+        _, _, trees = ckpt.load_raw(config.checkpoint_dir, step)
     nets = load_jax_params(Networks(config), trees['params'], trees['aux'])
-    print(' [*] Load SUCCESS')
+    if p0:
+        print(' [*] Load SUCCESS')
     compute = (torch.bfloat16 if config.test_batch_size
                and config.dtype == 'bfloat16' else torch.float32)
     nets = nets.to(device)
@@ -166,29 +201,32 @@ def main(argv=None):
     pending = None
     n_done = 0
     t0 = time.perf_counter()
+    def valid(filenames):
+        """(class ids, mask of the rows to write) of `filenames`."""
+        not_pad = np.array([f != Dataset.PAD for f in filenames], bool)
+        if not config.multiclasses:
+            return np.zeros(len(filenames), np.int32), not_pad
+        classes, mask = classes_padded(filenames, config.num_classes)
+        return classes, mask & not_pad
+
     try:
-        with torch.no_grad():
+        with torch.no_grad(), parallel.synced_batch_stats():
             for idx, (images, filenames) in enumerate(loader):
                 eps = torch.randn(2, generator=generator)
-                not_pad = np.array([f != Dataset.PAD for f in filenames],
-                                   bool)
-                if config.multiclasses:
-                    classes, mask = classes_padded(filenames,
-                                                   config.num_classes)
-                    mask &= not_pad
-                    if not mask.any():
-                        continue
-                else:
-                    classes = np.zeros(len(filenames), np.int32)
-                    mask = not_pad
+                # the whole batch's rows decide, alike on every rank
+                n_valid = int(valid(dataset.batch_files(idx)[1])[1].sum())
+                if not n_valid:
+                    continue
+                classes, mask = valid(filenames)
                 x = images.to(device, non_blocking=True).to(compute)
                 edge, image = forward(
                     x, torch.from_numpy(classes).to(device), eps)
                 if pending is not None:
                     save_batch(*pending)
                 pending = (images.numpy(), filenames, mask, edge, image)
-                n_done += int(mask.sum())
-                print('Test: [%4d/%4d]' % (idx, len(dataset)))
+                n_done += n_valid
+                if p0:
+                    print('Test: [%4d/%4d]' % (idx, len(dataset)))
             if pending is not None:
                 save_batch(*pending)
         for fut in save_futures:
@@ -197,7 +235,8 @@ def main(argv=None):
         loader.close()
         if save_pool is not None:
             save_pool.shutdown(wait=True)
-    if config.test_batch_size and n_done:
+    parallel.barrier('test outputs written')
+    if p0 and config.test_batch_size and n_done:
         dt = time.perf_counter() - t0
         print(f' [*] {n_done} images in {dt:.2f}s = '
               f'{n_done / dt:.1f} img/s (batched pipelined mode)')

@@ -2,8 +2,13 @@
 package's cli/train.py:29-353).
 
 Flag-compatible with the JAX trainer (every `Config` field is a flag),
-plus `--device` (default `cuda`: the card `cuda:<gpu>`; `cpu` runs the
-plain versions of the kernels). One process, one device. `--dtype
+plus `--device` (default `cuda`: the card `cuda:<gpu>`, or under a
+launcher `cuda:<LOCAL_RANK>`; `cpu` runs the plain versions of the
+kernels). One process per rank: run alone it trains on one device; under
+`torchrun --nproc_per_node N -m edgegan_torch.cli.train ...` (with
+`--data_parallel`, the default) N ranks split every global batch of
+`--batch_size` rows (`parallel`: NCCL between cards, gloo on the CPU or
+where ranks share a card). `--dtype
 bfloat16` trains in mixed precision, `--update_mode fast` takes the
 cheaper step, `--update_sn True` advances the classifier's spectral norms
 and `--reference_metrics True` logs the losses re-evaluated after the
@@ -29,6 +34,15 @@ when EDGEGAN_PALLAS_PRELU=1 and EDGEGAN_PALLAS_GATE=1 are set
 - TensorBoard events in `<logdir>` (`summaries.py`): the 11 losses every
   step, and histograms and image grids from one sample forward on the
   step's batch at `counter % summary_frequency == 0`.
+- Data parallelism: each rank decodes its rows of every global batch;
+  the step averages each group's gradients over the ranks, and the
+  packed metrics are averaged once per step, so every rank logs the
+  global means and takes the same NaN-policy decision. Rank 0 alone
+  prints, writes flags.json, metrics.jsonl, TensorBoard and the
+  checkpoints, and traces the profile. A SIGTERM/SIGINT on any rank
+  rides that average: every rank stops after the same counter, and one
+  checkpoint is written. Resuming, rank 0 picks the checkpoint and its
+  state is broadcast.
 """
 from __future__ import annotations
 
@@ -43,12 +57,13 @@ import numpy as np
 import torch
 
 from .. import checkpoint as ckpt
+from .. import parallel
 from ..core.config import add_config_args, config_from_args
 from ..data.dataset import Dataset
 from ..data.loader import PrefetchLoader
 from ..summaries import SummaryWriter
 from ..train.networks import Networks
-from ..train.state import create_train_state
+from ..train.state import broadcast_state, create_train_state
 from ..train.step import COMPUTE_DTYPES, make_draws, make_train_step
 from ..bridge import random_jax_params, load_jax_params
 
@@ -57,13 +72,23 @@ def main(argv=None):
     parser = argparse.ArgumentParser('edgegan_torch.cli.train')
     add_config_args(parser, 'train')
     parser.add_argument('--device', choices=('cuda', 'cpu'), default='cuda',
-                        help='cuda (the card cuda:<gpu>) or cpu')
+                        help='cuda (the card cuda:<gpu>, under a launcher '
+                             'cuda:<LOCAL_RANK>) or cpu')
     args = parser.parse_args(argv)
     config = config_from_args(args).derive('train')
-    device = torch.device(config.device(args.device))
-    if device.type == 'cuda':
-        torch.cuda.set_device(device)
-    config.save()
+    device = parallel.init(args.device, config.gpu, config.data_parallel)
+    try:
+        return _train(config, device)
+    finally:
+        parallel.shutdown()
+
+
+def _train(config, device):
+    p0 = parallel.is_process_zero()
+    world = parallel.world_size()
+    log = print if p0 else (lambda *args: None)
+    if p0:
+        config.save()
     os.makedirs(config.checkpoint_dir, exist_ok=True)
     os.makedirs(config.logdir, exist_ok=True)
 
@@ -75,7 +100,7 @@ def main(argv=None):
              output_width=config.output_width, crop=config.crop,
              grayscale=False, z_dim=config.z_dim),
         config.num_classes, cache=config.cache_data, seed=config.seed,
-        host_z=config.host_z)
+        host_z=config.host_z, shard=(parallel.rank(), world))
 
     # reference-initialised weights from --seed, then the newest checkpoint
     nets = Networks(config, critics=True)
@@ -85,14 +110,15 @@ def main(argv=None):
     state = create_train_state(nets)
     counter = 1
     loaded, ckpt_counter, _ = ckpt.load(config.checkpoint_dir, state)
+    broadcast_state(state)
     if loaded:
         counter = ckpt_counter
-        print(' [*] Load SUCCESS')
+        log(' [*] Load SUCCESS')
     else:
-        print(' [!] Load failed...')
+        log(' [!] Load failed...')
     n_params = sum(p.numel() for p in nets.parameters())
-    print(f'networks {", ".join(nets.names)}: {n_params:,} parameters on '
-          f'{device}')
+    log(f'networks {", ".join(nets.names)}: {n_params:,} parameters on '
+        f'{device}' + (f' (rank 0 of {world})' if world > 1 else ''))
 
     train_step = make_train_step(nets, config)
     # the step's random numbers (critics' blend weights, encoder eps,
@@ -102,13 +128,22 @@ def main(argv=None):
     # stream
     generator = torch.Generator(device=device)
 
-    metrics_log = open(os.path.join(config.logdir, 'metrics.jsonl'), 'a')
-    if loaded:
-        metrics_log.write(json.dumps({'resumed_at': counter}) + '\n')
-        metrics_log.flush()
-    tb = SummaryWriter(config.logdir, config)
+    metrics_log = tb = None
+    if p0:
+        metrics_log = open(os.path.join(config.logdir, 'metrics.jsonl'),
+                           'a')
+        if loaded:
+            metrics_log.write(json.dumps({'resumed_at': counter}) + '\n')
+            metrics_log.flush()
+        tb = SummaryWriter(config.logdir, config)
 
+    # a signal on this rank; at two or more ranks the decision to stop is
+    # the ranks' average of these flags, read with each step's metrics
     stop_requested = []
+    stop_all = []
+
+    def stopping() -> bool:
+        return bool(stop_all if world > 1 else stop_requested)
 
     def _request_stop(signum, frame):
         stop_requested.append(signum)
@@ -127,24 +162,28 @@ def main(argv=None):
 
     def process_metrics(step_counter, epoch, idx, packed):
         nonlocal nan_streak
-        metrics = dict(zip(metric_names, packed.tolist()))
-        d_err = sum(metrics.get(k, 0.0) for k in (
-            'joint_dis_dloss', 'image_dis_dloss', 'edge_dis_dloss'))
-        g_err = metrics.get('edge_gloss', 0.0) + metrics.get('image_gloss',
-                                                             0.0)
-        print('Epoch: [%2d/%2d] [%4d/%4d] time: %4.4f, '
-              'joint_dis_dloss: %.8f, joint_dis_gloss: %.8f'
-              % (epoch, config.epoch, idx, len(dataset),
-                 time.time() - start_time, 2 * d_err, g_err))
-        metrics_log.write(json.dumps(
-            {'step': step_counter, 'epoch': epoch, **metrics}) + '\n')
-        metrics_log.flush()
-        tb.scalars(step_counter, metrics)
+        values = packed.tolist()
+        if world > 1 and values.pop() > 0:
+            stop_all.append(step_counter)
+        metrics = dict(zip(metric_names, values))
+        if p0:
+            d_err = sum(metrics.get(k, 0.0) for k in (
+                'joint_dis_dloss', 'image_dis_dloss', 'edge_dis_dloss'))
+            g_err = metrics.get('edge_gloss', 0.0) + metrics.get(
+                'image_gloss', 0.0)
+            print('Epoch: [%2d/%2d] [%4d/%4d] time: %4.4f, '
+                  'joint_dis_dloss: %.8f, joint_dis_gloss: %.8f'
+                  % (epoch, config.epoch, idx, len(dataset),
+                     time.time() - start_time, 2 * d_err, g_err))
+            metrics_log.write(json.dumps(
+                {'step': step_counter, 'epoch': epoch, **metrics}) + '\n')
+            metrics_log.flush()
+            tb.scalars(step_counter, metrics)
         bad = sorted(k for k, v in metrics.items() if not math.isfinite(v))
         if bad and config.nan_policy != 'ignore':
             if not nan_streak:
-                print(f' [!] non-finite losses at step {step_counter}: '
-                      f'{",".join(bad)}')
+                log(f' [!] non-finite losses at step {step_counter}: '
+                    f'{",".join(bad)}')
             nan_streak = True
             if config.nan_policy == 'halt':
                 halted.append(step_counter)
@@ -154,11 +193,12 @@ def main(argv=None):
     pending = None  # (counter, epoch, idx, packed metrics) of the last step
     try:
         for epoch in range(config.epoch):
-            if stop_requested or halted:
+            if stopping() or halted:
                 break
             dataset.shuffle()
             for idx, (images, z, _files) in enumerate(loader):
-                if config.profile_steps and counter == 2 and profiler is None:
+                if (p0 and config.profile_steps and counter == 2
+                        and profiler is None):
                     profiler = torch.profiler.profile(activities=[
                         torch.profiler.ProfilerActivity.CPU] + (
                         [torch.profiler.ProfilerActivity.CUDA]
@@ -168,49 +208,59 @@ def main(argv=None):
                 images = images.to(device, non_blocking=True)
                 z = z.to(device, non_blocking=True)
                 generator.manual_seed(step_seed(config, counter))
-                draws = make_draws(config, images.shape[0], generator, device)
+                draws = make_draws(config, images.shape[0] * world,
+                                   generator, device)
                 state, metrics = train_step(state, images, z, draws)
                 if not metric_names:
                     metric_names.extend(sorted(metrics))
                 packed = torch.stack([metrics[k].float()
                                       for k in metric_names])
+                if world > 1:
+                    # the global means, and this rank's stop flag
+                    packed = torch.cat([packed, torch.tensor(
+                        [float(bool(stop_requested))], device=device)])
+                    parallel.all_reduce_mean_([packed])
                 counter += 1
                 if pending is not None:
                     process_metrics(*pending)
                 pending = (counter, epoch, idx, packed)
                 if halted:
                     break
-                if counter % config.summary_frequency == 0:
+                if p0 and counter % config.summary_frequency == 0:
                     tb.extras(counter, state, images, z)
                 if profiler is not None and counter >= profile_end:
                     _stop_profile(profiler, config.logdir, device)
                     profiler = None
                 if counter % config.save_checkpoint_frequency == 2:
-                    print(' [*] Saving checkpoints...')
+                    log(' [*] Saving checkpoints...')
                     ckpt.save_async(config.checkpoint_dir, counter, state,
                                     keep=config.keep_checkpoint_max)
-                if stop_requested:
+                if stopping():
                     break
         if pending is not None and not halted:
             process_metrics(*pending)  # the last step's metrics
         if halted:
-            print(' [!] nan_policy=halt: saving checkpoint and exiting')
+            log(' [!] nan_policy=halt: saving checkpoint and exiting')
             ckpt.save_halt(config.checkpoint_dir, counter, state)
             raise SystemExit(1)
-        if stop_requested:
-            print(f' [*] Caught signal {stop_requested[0]}: saving '
-                  f'checkpoint at counter {counter} and exiting')
+        if stopping():
+            log(f' [*] Caught signal '
+                f'{stop_requested[0] if stop_requested else "on a peer"}: '
+                f'saving checkpoint at counter {counter} and exiting')
             ckpt.save(config.checkpoint_dir, counter, state,
                       keep=config.keep_checkpoint_max)
+        ckpt.wait_for_async()  # a cadence save may still be writing
     finally:
         if profiler is not None:
             _stop_profile(profiler, config.logdir, device)
         loader.close()
-        metrics_log.close()
-        tb.close()
+        if p0:
+            metrics_log.close()
+            tb.close()
         for sig, handler in previous.items():
             signal.signal(sig, handler)
-        ckpt.wait_for_async()  # a cadence save may still be writing
+        # after an error, without waiting for peers that may not come
+        ckpt.wait_for_async(barrier=False)
     return state
 
 

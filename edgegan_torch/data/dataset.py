@@ -16,10 +16,17 @@ named `Dataset.PAD` so that callers drop those rows. The shuffle is
 seeded by `seed`. A training batch is (images, z, files), a test batch
 (images, files).
 
+Data parallelism: with `shard=(rank, world)` the batch size stays the
+global one, every rank shuffles alike (the same seeded stream) and each
+decodes and returns only its contiguous rows of every global batch; a
+padded tail is padded as a whole first, so the ranks' rows join into the
+one-process batch.
+
 z: with `host_z`, every batch carries its own N(0, 1) latents, derived
-from a counter (seed, shuffle generation, batch index) so that they do
-not depend on which prefetch thread decodes the batch, followed by the
-class-id column; without it (the default) only the class-id column is
+from a counter (seed, rank, shuffle generation, batch index) so that
+they do not depend on which prefetch thread decodes the batch (the JAX
+dataset's stream, bit for bit, l.173-202), followed by the class-id
+column; without it (the default) only the class-id column is
 returned and the train step draws z on the device.
 
 Decoding: without crop or grayscale, a batch's PNGs already at the output
@@ -48,16 +55,21 @@ class Dataset:
                  config: dict, num_classes: Optional[int] = None,
                  cache: bool = False, seed: int = 0, host_z: bool = False,
                  phase: str = 'train', pad_tail: bool = False,
-                 subdir: Optional[str] = None):
+                 subdir: Optional[str] = None, shard=(0, 1)):
         """`config` holds input_height/width, output_height/width, crop,
         grayscale and (training) z_dim. `cache=True` keeps every decoded
-        image in RAM after first use."""
+        image in RAM after first use. `shard`: (rank, world), whose rows
+        of each global batch of `batchsize` this rank returns."""
         if phase not in ('train', 'test'):
             raise ValueError(f'phase {phase!r}: train or test')
         if pad_tail and phase != 'test':
             raise ValueError('pad_tail is a test-phase option')
         self.phase, self.pad_tail = phase, pad_tail
-        self.batchsize = batchsize
+        self.batchsize = batchsize   # the global batch
+        self.rank, self.world = shard
+        if batchsize % self.world:
+            raise ValueError(f'batch {batchsize} over {self.world} ranks')
+        self.local_batchsize = batchsize // self.world
         self.num_classes = num_classes
         self.config = config
         self.cache = cache
@@ -133,15 +145,25 @@ class Dataset:
             out.append(img)
         return np.stack(out)
 
+    def batch_files(self, idx):
+        """(paths to decode, file names) of global batch `idx`: a padded
+        tail repeats its last file in the paths and names those rows
+        `PAD`."""
+        files = self.data[idx * self.batchsize:(idx + 1) * self.batchsize]
+        n_pad = self.batchsize - len(files) if self.pad_tail else 0
+        return files + files[-1:] * n_pad, files + [self.PAD] * n_pad
+
     def __getitem__(self, idx):
         """-> (images [B, H, W, 3] float32 in [-1, 1], z [B, feed width]
         float32, file names) in training, (images, file names) in the
-        test phase."""
-        files = self.data[idx * self.batchsize:(idx + 1) * self.batchsize]
-        n_pad = self.batchsize - len(files) if self.pad_tail else 0
-        images = self._load_batch(files + files[-1:] * n_pad)
+        test phase; B is this rank's rows of the global batch."""
+        paths, names = self.batch_files(idx)
+        lo = self.rank * self.local_batchsize
+        paths = paths[lo:lo + self.local_batchsize]
+        files = names[lo:lo + self.local_batchsize]
+        images = self._load_batch(paths)
         if self.phase == 'test':
-            return images, files + [self.PAD] * n_pad
+            return images, files
         classes = None
         if self.num_classes is not None:
             classes = np.array(
@@ -149,7 +171,7 @@ class Dataset:
                 np.float32).reshape(-1, 1)
         if self.host_z:
             zrng = np.random.default_rng(np.random.SeedSequence(
-                [self._z_base, 0, self._shuffle_gen, idx]))
+                [self._z_base, self.rank, self._shuffle_gen, idx]))
             z = zrng.normal(size=(len(files), self.config['z_dim'])).astype(
                 np.float32)
             if classes is not None:

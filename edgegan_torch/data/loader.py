@@ -4,7 +4,11 @@ tensors, in pinned memory when `pin` is set so that the train loop's
 `.to(device, non_blocking=True)` copies overlap the card's work. With
 `image_dtype` the images are cast on the host (bfloat16 training copies
 half the bytes, as the JAX trainer does). A training batch is (images,
-z, files), a test batch (images, files); the file names pass through."""
+z, files), a test batch (images, files); the file names pass through.
+Under data parallelism the dataset's `shard` makes every batch this
+rank's rows, which the caller copies to the rank's card
+(`cuda:<LOCAL_RANK>`, the JAX loader's put of a process's shard,
+l.40-49)."""
 from __future__ import annotations
 
 import concurrent.futures as cf

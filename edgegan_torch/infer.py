@@ -34,6 +34,9 @@ def make_test_forward(nets: Networks, config: Config,
     in the dtype of `nets`; `classes` int [B]. `eps` is a tensor of two
     scalars (e1, e2); without it `generator` (a `torch.Generator` on the
     CPU) draws them. Returns NHWC [B, H, W/2, 3] edge and image halves.
+    Under data parallelism each rank passes its rows of the batch inside
+    `parallel.synced_batch_stats()` (`cli.test`, `serve`), so that the
+    generators' batch norm (quirk Q14) sees the whole batch.
     """
     exact_f32()
     h = config.output_height

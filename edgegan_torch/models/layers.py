@@ -33,7 +33,9 @@ class BatchNorm(nn.Module):
     the channels of NCHW or the features of a 2-D [B, F]. The moving
     statistics are carried as buffers but never read, and training
     leaves them as they are, since the JAX step keeps `batch_stats`
-    immutable (layers.py:74-84). `Networks.cast` keeps gamma/beta float32
+    immutable (layers.py:74-84). Inside `parallel.synced_batch_stats()`
+    the statistics span the ranks (`ops/norms.batch_norm`), as the JAX
+    package's do over a sharded batch. `Networks.cast` keeps gamma/beta float32
     in a bfloat16 copy, since the JAX package reads them as float32
     (ops/norms.py:94).
 

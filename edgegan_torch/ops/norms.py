@@ -4,7 +4,8 @@
   no learnable scale/shift (quirk Q1), population variance over H, W.
 - batch_norm: train-mode batch statistics (the reference hard-codes
   `is_training=True`, quirk Q14), learnable gamma/beta, eps INSIDE the
-  sqrt, computed in float32 and cast back.
+  sqrt, computed in float32 and cast back; inside
+  `parallel.synced_batch_stats()` over every rank's rows.
 - spectral_normalize: one power iteration from a stored `u` (reference
   normalization.py:38-76); `u` itself stays frozen (quirk Q3) unless the
   caller stores the u_new it returns (`update_sn`).
@@ -16,6 +17,8 @@ from __future__ import annotations
 import os
 
 import torch
+
+from .. import parallel
 
 
 def nan_guards_enabled() -> bool:
@@ -59,11 +62,23 @@ def batch_norm(x, gamma, beta, eps: float = 1e-5):
     epsilon=1e-5) with the channels on axis 1: NCHW, or a 2-D [B, F]
     whose F features are the channels. The statistics run over every
     other axis, as the JAX package's over all but its last
-    (ops/norms.py:82-95). Returns (out, mean, var)."""
+    (ops/norms.py:82-95). Returns (out, mean, var).
+
+    Inside `parallel.synced_batch_stats()` at two or more ranks the
+    statistics span every rank's rows, in JAX's two passes: the global
+    mean, then the global mean of the squared deviation from it, each a
+    differentiable sum over the ranks divided by the global count (GSPMD
+    gives the JAX package the same over a sharded batch)."""
     x32 = x.float()
     axes = (0,) + tuple(range(2, x.dim()))
-    mean = x32.mean(dim=axes, keepdim=True)
-    var = torch.square(x32 - mean).mean(dim=axes, keepdim=True)
+    if parallel.batch_stats_synced():
+        count = x32.numel() // x32.shape[1] * parallel.world_size()
+        mean = parallel.sum_across(x32.sum(dim=axes, keepdim=True)) / count
+        var = parallel.sum_across(torch.square(x32 - mean).sum(
+            dim=axes, keepdim=True)) / count
+    else:
+        mean = x32.mean(dim=axes, keepdim=True)
+        var = torch.square(x32 - mean).mean(dim=axes, keepdim=True)
     out = (x32 - mean) * torch.rsqrt(var + eps)
     out = out * gamma.float().view_as(mean) + beta.float().view_as(mean)
     return out.to(x.dtype), mean.reshape(-1), var.reshape(-1)

@@ -10,6 +10,17 @@ The same contract as the JAX package's serve.py:
 
 The device computes batch N while the host collects batch N+1.
 
+Data parallelism: under `torchrun --nproc_per_node N` rank 0 runs the HTTP
+front end and the batching; each padded batch goes to every rank by
+broadcast, each rank computes its rows (the batch-norm statistics over
+the whole batch, `parallel.synced_batch_stats`), and rank 0 collects the
+photos by one all-reduce of the zero-filled batch into which each rank
+writes its rows, then copies them to the host. `--serve_batch` must
+divide by N; `/healthz` reports the world size; the other ranks follow
+rank 0 (`Batcher.follow`) and leave when it stops. While no request
+comes, rank 0 sends an idle beat every IDLE_BEAT_S seconds, so that the
+followers' wait stays within the collective timeout.
+
 Endpoints:
   POST /generate?class_id=N   body: PNG/JPEG sketch pair (any size;
                               resized to the model's input). Returns a
@@ -45,12 +56,16 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import parallel
 from .core.config import Config
 from .infer import make_test_forward
 from .train.networks import Networks
 
 _XFER = {'bfloat16': torch.bfloat16, 'float32': torch.float32,
          'uint8': torch.uint8}
+# what rank 0 broadcasts to the other ranks before each batch
+_RUN, _IDLE, _STOP = 0, 1, 2
+IDLE_BEAT_S = 10.0
 
 
 class Overloaded(RuntimeError):
@@ -82,6 +97,10 @@ class Batcher:
 
     A failing forward delivers the exception to every waiting request
     instead of killing the pipeline.
+
+    At two or more ranks, rank 0's Batcher runs the pipeline and the other
+    ranks' Batchers run `follow()`; `max_batch` must divide by the world
+    size.
     """
 
     def __init__(self, nets: Networks, config: Config,
@@ -91,6 +110,10 @@ class Batcher:
                  max_queue: Optional[int] = None, device: str = 'cuda'):
         if transfer_dtype not in _XFER:
             raise ValueError(f'transfer_dtype {transfer_dtype!r}')
+        self.world = parallel.world_size()
+        if max_batch % self.world:
+            raise ValueError(f'max_batch {max_batch} does not divide over '
+                             f'{self.world} ranks')
         self.device = torch.device(device)
         self.input_hw = (config.output_height, config.output_width)
         self.num_classes = config.num_classes
@@ -127,12 +150,14 @@ class Batcher:
         self.batch_occupancy: 'collections.deque' = collections.deque(
             maxlen=512)
         self._stop = threading.Event()
+        self._last_beat = time.perf_counter()
         self.thread = threading.Thread(target=self._dispatch_loop,
                                        daemon=True)
         self.sync_thread = threading.Thread(target=self._sync_loop,
                                             daemon=True)
-        self.thread.start()
-        self.sync_thread.start()
+        if parallel.is_process_zero():
+            self.thread.start()
+            self.sync_thread.start()
 
     # ---------- the device step ----------
 
@@ -143,12 +168,27 @@ class Batcher:
         pinned buffer on CUDA, filled asynchronously)."""
         x = images.to(self.device, non_blocking=True)
         cls = classes.to(self.device, non_blocking=True)
+        if self.world > 1:
+            self._send(_RUN, step_idx)
+            parallel.broadcast_([x, cls])
+        out = self._rows(x, cls, step_idx)
+        if not self._cuda:
+            return out
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        return host
+
+    def _rows(self, x, cls, step_idx: int) -> torch.Tensor:
+        """The photos of the padded batch `x` on the device, in the
+        transfer dtype: at two or more ranks this rank computes its rows
+        and every rank gets the whole batch's."""
+        x, cls = parallel.local_rows(x), parallel.local_rows(cls)
         if self._uint8:
             # symmetric map: 128 -> exactly 0.0, so padding rows equal
             # the float path's zero padding (pad rows leak into every
             # row through the Q14 batch norm)
             x = (x.float() - 128.0) / 127.5
-        with torch.inference_mode():
+        with torch.inference_mode(), parallel.synced_batch_stats():
             _, photo = self.forward(x.to(self.compute_dtype), cls,
                                     batch_eps(self.seed, step_idx))
         if self._uint8:
@@ -158,12 +198,48 @@ class Batcher:
             cscale = torch.where(cmax == cmin, torch.ones_like(cmax),
                                  cmax - cmin)
             photo = ((p - cmin) * (255.0 / cscale) + 0.4999).clamp(0, 255)
-        out = photo.to(self._xfer_dtype)
-        if not self._cuda:
-            return out
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        return host
+        if self.world > 1:
+            photo = self._gather(photo)
+        return photo.to(self._xfer_dtype)
+
+    def _gather(self, photo):
+        """The whole batch's photos on every rank: each rank writes its
+        rows into a zero-filled batch, and the ranks' batches are summed
+        (exactly: every other rank adds zeros)."""
+        rows = photo.shape[0]
+        with torch.inference_mode():
+            full = torch.zeros((rows * self.world, *photo.shape[1:]),
+                               dtype=torch.float32, device=self.device)
+            full[parallel.rank() * rows:][:rows] = photo.float()
+            parallel.all_reduce_sum_([full])
+        return full
+
+    # ---------- the ranks other than 0 ----------
+
+    def _send(self, command: int, step_idx: int = 0):
+        """Rank 0: tell the other ranks what comes next."""
+        header = torch.tensor([command, step_idx], device=self.device)
+        parallel.broadcast_([header])
+        self._last_beat = time.perf_counter()
+
+    def follow(self):
+        """A rank other than 0: compute its rows of every batch that rank
+        0 sends, until rank 0 stops."""
+        h, w = self.input_hw
+        while True:
+            header = torch.zeros(2, dtype=torch.int64, device=self.device)
+            parallel.broadcast_([header])
+            command, step_idx = header.tolist()
+            if command == _STOP:
+                return
+            if command == _IDLE:
+                continue
+            x = torch.empty((self.max_batch, h, w // 2, 3),
+                            dtype=self._xfer_dtype, device=self.device)
+            cls = torch.empty((self.max_batch,), dtype=torch.int64,
+                              device=self.device)
+            parallel.broadcast_([x, cls])
+            self._rows(x, cls, step_idx)
 
     # ---------- request intake ----------
 
@@ -243,6 +319,9 @@ class Batcher:
         while not self._stop.is_set():
             batch = self._collect()
             if batch is None:
+                if (self.world > 1 and time.perf_counter() - self._last_beat
+                        > IDLE_BEAT_S):
+                    self._send(_IDLE)
                 continue
             try:
                 images, classes = self._stage(batch)
@@ -308,6 +387,8 @@ class Batcher:
         self._stop.set()
         self.thread.join(timeout=5)
         self.sync_thread.join(timeout=5)
+        if self.world > 1 and parallel.is_process_zero():
+            self._send(_STOP)
 
     def stats(self):
         occ = list(self.batch_occupancy)[-100:]
@@ -323,6 +404,7 @@ class Batcher:
             'max_batch': self.max_batch,
             'depth': self.depth,
             'device': str(self.device),
+            'world_size': self.world,
         }
 
 
@@ -456,8 +538,6 @@ def make_server(config: Config, batcher: Batcher, port: int = 8000,
 def main(argv=None):
     import argparse
 
-    from . import checkpoint as ckpt
-    from .bridge import load_jax_params, load_npz
     from .core.config import add_config_args, config_from_args
 
     parser = argparse.ArgumentParser('edgegan_torch.serve')
@@ -467,7 +547,8 @@ def main(argv=None):
                              'served instead of the newest checkpoint')
     parser.add_argument('--device', type=str, default='cuda',
                         choices=['cuda', 'cpu'],
-                        help="'cuda' runs on cuda:<gpu>")
+                        help="'cuda' runs on cuda:<gpu> (under a launcher "
+                             'cuda:<LOCAL_RANK>)')
     parser.add_argument('--port', type=int, default=8000)
     parser.add_argument('--host', type=str, default='127.0.0.1')
     parser.add_argument('--serve_batch', type=int, default=16)
@@ -483,24 +564,44 @@ def main(argv=None):
                              'in bfloat16, the others in float32')
     args = parser.parse_args(argv)
     config = config_from_args(args).derive('test')
+    device = parallel.init(args.device, config.gpu, config.data_parallel)
+    try:
+        _serve(args, config, device)
+    finally:
+        parallel.shutdown()
 
+
+def _serve(args, config, device):
+    from . import checkpoint as ckpt
+    from .bridge import load_jax_params, load_npz
+
+    p0 = parallel.is_process_zero()
     nets = Networks(config)
     if args.weights:
         params, aux = load_npz(args.weights)
-        print(f' [*] serving weights {args.weights}')
+        if p0:
+            print(f' [*] serving weights {args.weights}')
     else:
-        loaded, counter, trees = ckpt.load_raw(config.checkpoint_dir)
-        if not loaded:
+        # rank 0 picks the entry, every rank reads that one
+        loaded, counter, trees = (ckpt.load_raw(config.checkpoint_dir)
+                                  if p0 else (False, 0, None))
+        counter = parallel.broadcast_object(counter if loaded else None)
+        if counter is None:
             raise SystemExit(f'no checkpoint under {config.checkpoint_dir}')
+        if trees is None:
+            _, _, trees = ckpt.load_raw(config.checkpoint_dir, counter)
         params, aux = trees['params'], trees['aux']
-        print(f' [*] serving checkpoint step {counter}')
+        if p0:
+            print(f' [*] serving checkpoint step {counter}')
     load_jax_params(nets, params, aux)
     batcher = Batcher(nets, config, max_batch=args.serve_batch,
                       max_wait_ms=args.max_wait_ms, seed=config.seed,
                       depth=args.serve_depth,
                       transfer_dtype=args.transfer_dtype,
-                      max_queue=args.max_queue or None,
-                      device=config.device(args.device))
+                      max_queue=args.max_queue or None, device=str(device))
+    if not p0:
+        batcher.follow()
+        return
     # build the kernels and warm cuDNN before accepting traffic
     warm = batcher.submit(np.zeros((config.output_height,
                                     config.output_width, 3), np.float32), 0)

@@ -22,7 +22,9 @@ around hand-encoded `Event` protos, the first of which holds
 `file_version: "brain.Event:2"`. TensorBoard's `EventAccumulator` lists
 every tag under 'tensors'.
 
-One process writes; the data-parallel case is not ported.
+Under data parallelism rank 0 alone writes: the trainer opens the writer
+there, and `extras` runs its sample forward on rank 0's rows of the batch
+(the JAX writer's `_local_batch`, l.84-94, 119-130), with no collective.
 """
 from __future__ import annotations
 
@@ -270,7 +272,9 @@ class SummaryWriter:
     def extras(self, step: int, state, images, z):
         """Histograms and image grids from one sample forward of
         `state.nets` on the step's batch: `images` NHWC [B, H, W, 3],
-        `z` the step's latent feed. With the device-z feed (a class
+        `z` the step's latent feed (this rank's rows under data
+        parallelism; the batch norm takes their statistics alone, outside
+        `parallel.synced_batch_stats`). With the device-z feed (a class
         column only) the latents are drawn from np.random.default_rng(
         step), as the JAX writer draws them."""
         z = torch.as_tensor(z).float().cpu().numpy()

@@ -22,6 +22,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from .. import parallel
 from .networks import Networks
 
 # optimizer group -> the network it updates, in the reference's order
@@ -59,6 +60,21 @@ def create_train_state(nets: Networks) -> TrainState:
                                                contiguous_format)
                             for n, p in zip(names, params)}
     return TrainState(nets=nets, slots=slots)
+
+
+def broadcast_state(state: TrainState) -> TrainState:
+    """Rank 0's state on every rank, in place: parameters, buffers (the
+    spectral-norm vectors, the moving statistics), RMSProp slots and the
+    step count, so that the ranks start bitwise equal after init or
+    restore. A no-op without a process group."""
+    if parallel.initialized():
+        tensors = ([p.data for p in state.nets.parameters()]
+                   + list(state.nets.buffers())
+                   + [t for slots in state.slots.values()
+                      for t in slots.values()])
+        parallel.broadcast_(tensors)
+        state.step = parallel.broadcast_object(state.step)
+    return state
 
 
 class RMSProp:

@@ -38,6 +38,19 @@ per sample for each critic's penalty, the encoder's scalar eps, and with
 `host_z=False` the latent z. The CLI draws them from a `torch.Generator`
 on the device; the tests hand in the JAX step's own draws.
 
+Data parallelism (`parallel`, at two or more ranks): each rank passes its
+rows of the global batch; `make_draws` draws the global batch's random
+numbers from the step's generator, seeded alike on every rank, and keeps
+this rank's rows (the JAX step's sharding-invariant draw, l.127-140);
+every group's gradients are averaged over the ranks before its update
+(one flat all-reduce per group, K5's `dleak` in the classifier's); the
+losses stay local means, and the batch-norm statistics span the ranks
+(`parallel.synced_batch_stats`, entered for the whole step), so the mean
+of the ranks' gradients is the gradient of the global mean. Every rank
+applies the same update, and the parameters stay equal bit for bit; the
+spectral norms' `u` follows from them. The metrics returned are this
+rank's; the trainer averages them over the ranks.
+
 `dtype='bfloat16'` is mixed precision as in the JAX step (step.py:42-48,
 143-146): the images and the generators' input are cast to bfloat16 after
 the class column is read, and every layer casts its float32 weight to its
@@ -54,6 +67,7 @@ from typing import Dict, List, Optional
 import torch
 
 from .. import losses as L
+from .. import parallel
 from ..core.config import Config
 from ..infer import exact_f32
 from ..models.layers import advance_spectral_norms
@@ -84,7 +98,9 @@ class Draws:
 
 def make_draws(config: Config, batch: int, generator: torch.Generator,
                device) -> Draws:
-    """Draw one step's `Draws` from `generator` (on `device`). In bfloat16
+    """Draw one step's `Draws` for a global batch of `batch` rows from
+    `generator` (on `device`), and keep this rank's rows (all of them at
+    world size 1); `eps` is one scalar for the whole batch. In bfloat16
     the blend weights are multiples of 2^-7 in [0, 1), the values
     `jax.random.uniform` draws in bfloat16 (losses.py:102), so that no
     float32 draw rounds up to 1. The `reference_metrics` blend weights are
@@ -103,8 +119,13 @@ def make_draws(config: Config, batch: int, generator: torch.Generator,
     z = (None if config.host_z else
          torch.randn(batch, config.z_dim, generator=generator,
                      device=device))
-    return Draws(alpha=alpha, eps=eps, z=z,
-                 alpha_eval=blends() if config.reference_metrics else None)
+    alpha_eval = blends() if config.reference_metrics else None
+
+    def rows(d):
+        return d and {k: parallel.local_rows(v) for k, v in d.items()}
+    return Draws(alpha=rows(alpha), eps=eps,
+                 z=None if z is None else parallel.local_rows(z),
+                 alpha_eval=rows(alpha_eval))
 
 
 def make_train_step(nets: Networks, config: Config):
@@ -130,6 +151,7 @@ def make_train_step(nets: Networks, config: Config):
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
+        parallel.all_reduce_mean_(grads)
         for g in names:
             qual, ps = groups[g]
             opt.update(ps, grads[:len(ps)],
@@ -191,8 +213,12 @@ def make_train_step(nets: Networks, config: Config):
         """images: NHWC [B, H, W, 3] in [-1, 1] (float32, or already
         bfloat16); z: the batch's [B, z_dim (+1)] latents and class column
         (`host_z`), or its [B, 1] class column (device z, the latents in
-        `draws.z`). Updates `state` in place and returns it with the
-        step's 11 metrics (0-d float32 tensors)."""
+        `draws.z`); B is this rank's rows. Updates `state` in place and
+        returns it with the step's 11 metrics (0-d float32 tensors)."""
+        with parallel.synced_batch_stats():
+            return step(state, images, z, draws)
+
+    def step(state, images, z, draws):
         metrics = {}
         z = z.float()
         if not config.host_z:

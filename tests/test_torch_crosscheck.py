@@ -15,6 +15,7 @@ torch = pytest.importorskip('torch')
 import jax.numpy as jnp  # noqa: E402
 
 from edgegan_tpu.ops import conv2d, deconv2d  # noqa: E402
+from test_torch_variants import few_threads  # noqa: F401,E402
 
 
 def test_conv2d_same_matches_torch():

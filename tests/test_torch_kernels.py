@@ -430,7 +430,7 @@ def test_port_imports_no_jax():
         'import edgegan_torch\n'
         "for name in ('cli.train', 'train.step', 'checkpoint', "
         "'data.dataset', 'data.loader', 'losses', 'cli.test', 'serve', "
-        "'utils.metrics_io', 'utils.images'):\n"
+        "'utils.metrics_io', 'utils.images', 'parallel'):\n"
         "    importlib.import_module('edgegan_torch.' + name)\n"
         'for m in pkgutil.walk_packages(edgegan_torch.__path__, '
         "'edgegan_torch.'):\n"

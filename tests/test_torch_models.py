@@ -16,6 +16,7 @@ from edgegan_torch import bridge
 from edgegan_torch.core.config import Config
 from edgegan_torch.infer import make_test_forward
 from edgegan_torch.train.networks import Networks
+from test_torch_variants import few_threads  # noqa: F401
 
 SMALL = dict(num_classes=4, z_dim=8, output_height=32, output_width=64,
              input_height=32, input_width=64)

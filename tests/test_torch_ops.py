@@ -16,6 +16,7 @@ from edgegan_torch.ops import conv as tconv
 from edgegan_torch.ops import norms as tnorms
 from edgegan_torch.ops import pool as tpool
 from edgegan_torch.ops.resize import resize as tresize
+from test_torch_variants import few_threads  # noqa: F401
 
 ATOL = 1e-4
 

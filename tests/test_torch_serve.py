@@ -17,6 +17,7 @@ from edgegan_torch.core.config import Config
 from edgegan_torch.infer import make_test_forward
 from edgegan_torch.serve import Batcher, Overloaded, batch_eps, make_server
 from edgegan_torch.train.networks import Networks
+from test_torch_variants import few_threads  # noqa: F401
 
 H, W = 32, 64
 CFG = Config(num_classes=3, z_dim=8, output_height=H, output_width=W,

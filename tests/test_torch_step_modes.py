@@ -37,6 +37,7 @@ from test_torch_train import (BF16_JITTER, METRIC_FLOOR, NETS, PARAM_FLOOR,
                               SENSITIVITY_BF16_X, SWITCHES, TINY,
                               _check_within_sensitivity, _flat, _jax_state,
                               _tree_np, jax_draws, make_batch)
+from test_torch_variants import few_threads  # noqa: F401
 
 STEPS = 2
 OPTIONS = dict(update_mode='fast', reference_metrics=True, update_sn=True)

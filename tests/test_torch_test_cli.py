@@ -39,6 +39,7 @@ from edgegan_torch.train.networks import Networks
 from edgegan_torch.train.state import create_train_state
 from edgegan_torch.utils import metrics_io
 from edgegan_torch.utils.images import bytescale, inverse_transform
+from test_torch_variants import few_threads  # noqa: F401
 
 H, W = 32, 64
 HALF = W // 2

@@ -49,6 +49,7 @@ from edgegan_torch.ops import kernels
 from edgegan_torch.train.networks import Networks
 from edgegan_torch.train.state import create_train_state
 from edgegan_torch.train.step import Draws, make_train_step
+from test_torch_variants import few_threads  # noqa: F401
 
 TINY = dict(batch_size=4, num_classes=3, z_dim=8, output_height=32,
             output_width=64, input_height=32, input_width=64,
@@ -67,11 +68,12 @@ SENSITIVITY_BF16_X = 2.0
 SWITCHES = ('EDGEGAN_PALLAS_PRELU', 'EDGEGAN_PALLAS_GATE')
 
 
-def make_batch(k, jitter=None, scale=1e-6):
+def make_batch(k, jitter=None, scale=1e-6, batch=None):
     """Step k's images [B, H, W, 3] and host z [B, z_dim + 1] (latents
-    and the class column); `jitter` (a RandomState) moves the images and
-    latents by about `scale` relative."""
-    b = TINY['batch_size']
+    and the class column), B = `batch` or TINY's; `jitter` (a
+    RandomState) moves the images and latents by about `scale`
+    relative."""
+    b = batch or TINY['batch_size']
     images = np.random.RandomState(10 + k).randn(
         b, TINY['output_height'], TINY['output_width'], 3).clip(-1, 1)
     z = np.random.RandomState(20 + k).randn(b, TINY['z_dim'] + 1)
@@ -91,15 +93,16 @@ def _flat(tree):
 
 
 def jax_draws(encode, params, aux, rng, dtype=jnp.float32,
-              evals: bool = False):
+              evals: bool = False, batch=None):
     """The JAX step's draws for `rng` (train/step.py:125-126): each
     critic's alpha, drawn in the step's `dtype` as losses.py:102 draws it
     (held here in float32, exactly), and the encoder's scalar eps (drawn
     in float32 in either dtype), recovered from `encode` (the JAX
     encoder) as (z - mu)/exp(log_sigma) at the entry where that is best
     conditioned. With `evals`, also the `reference_metrics` penalties'
-    alphas, from `fold_in(rng, 16 + i)` (train/step.py:271-272)."""
-    b = TINY['batch_size']
+    alphas, from `fold_in(rng, 16 + i)` (train/step.py:271-272). The
+    batch has `batch` rows, or TINY's."""
+    b = batch or TINY['batch_size']
 
     def alphas(first):
         return {name: torch.from_numpy(np.asarray(jax.random.uniform(
