@@ -151,6 +151,24 @@ the package is missing, and on any failed check.
    (max_batch 16, float32): /healthz's world size, a raw request held to
    a one-process Batcher within 1e-3, the time per request of 16 beside
    one process's, and both ranks gone after SIGINT to rank 0.
+13a. Quality phase (run last), the toolchain around a run at the
+   recipe's width (14 classes, 64x128 pairs, batch 64, float32): a
+   genshapes tree staged
+   by `data/genshapes.py` (seed 11, 16 train / 4 test pairs a class, cut
+   from the recipe's 1006 / 24 for time; Pillow's version and three
+   files' hashes printed, not required to equal another machine's);
+   `cli.train_extractor` for 30 steps with both classifier switches on,
+   then 5 with them off: the loss finite and lower over the last 5 steps
+   than over the first 5, launches K5 14, K3 4, K4 4 per step and K3 4
+   per held-out forward with the switches, none without; the npz and its
+   sidecar written, their features of 64 photos through
+   `evaluation.pinned_extractor` on the card within 1e-3 of the largest
+   |feature| of the CPU's; the step timed by CUDA events, switches off
+   and on in turns. Then `cli.fid_curve` with that npz, the gate switch
+   on, over the train phase's retained checkpoints (two random states
+   when it did not run), --limit 64: one row per retained step, the last
+   point's FID equal to `cli.evaluate`'s at that step within rtol 1e-6,
+   K1 6 per generator forward, K3 4 per classifier forward.
 14. Prints one JSON line describing every kernel, then
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -218,10 +236,13 @@ K3_PER_STEP = K4_PER_STEP = 4 * CLASSIFIER_PASSES
 # input. The fast step runs one generator update and gives the encoder
 # the step-start fake; reference_metrics adds a generator forward and the
 # generators' losses (one classifier forward) without a gradient;
-# update_sn runs no forward.
+# update_sn runs no forward. The extractor's step (cli.train_extractor)
+# is one classifier forward and backward.
 STEP_KINDS = {'faithful': (7, 4, 1, 1, 3, 3),
               'fast': (4, 2, 1, 1, 2, 2),
-              'fast, reference_metrics, update_sn': (8, 2, 1, 1, 3, 2)}
+              'fast, reference_metrics, update_sn': (8, 2, 1, 1, 3, 2),
+              # the pinned extractor's trainer: the classifier alone
+              'extractor': (0, 0, 0, 0, 1, 1)}
 # float32 operations per element: K5 mul, 2 compares, select, fma, mul,
 # mul, add; K3 min, max, sub, div, mul, add; K4 min, max, then sub, div,
 # mul, mul, sub, 2 mul-adds, add, 2 compares, 2 adds, then mul, div,
@@ -1682,6 +1703,212 @@ def evaluate_phase(card: str, tmp: str):
     return launches, results
 
 
+QUALITY_PER_CLASS = (16, 4)   # train / test pairs a class (recipe 1006 / 24)
+QUALITY_STEPS = {True: 30, False: 5}   # extractor steps, switches on / off
+QUALITY_TIMED = 10
+QUALITY_LIMIT = 64
+
+
+def _sha(path: str) -> str:
+    import hashlib
+    with open(path, 'rb') as f:
+        return hashlib.sha256(f.read()).hexdigest()[:16]
+
+
+def _add_counts(a, b):
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def quality_phase(card: str, tmp: str):
+    """The quality toolchain on cuda at the recipe's width (14 classes,
+    64x128 pairs, batch 64, float32): stage a small genshapes tree
+    (`data/genshapes.py`, seed 11, QUALITY_PER_CLASS pairs a class; the
+    Pillow version and three files' hashes printed), train the pinned
+    extractor through `cli.train_extractor` for 30 steps with both
+    classifier switches on, then 5 with them off: the loss finite and
+    lower at the end than at the start; launches K5 14, K3 4, K4 4 a step
+    (and K3 4 per held-out forward) with the switches, none without; the
+    npz and its sidecar written and read by `evaluation.pinned_extractor`,
+    its features of 64 photos on the card within FEATURE_TOL of the CPU's;
+    the step timed by CUDA events, switches off and on in turns. Then
+    `cli.fid_curve` with that npz over the train phase's retained
+    checkpoints (a ladder of two random states when that phase did not
+    run), --limit 64, gate switch on: one row per retained step, one
+    point's FID equal to `cli.evaluate`'s on the same step within rtol
+    1e-6, K1 6 per generator forward and K3 4 per classifier forward.
+    Returns (launches by run, results)."""
+    import math
+
+    import numpy as np
+    import PIL
+    import torch
+
+    from edgegan_torch import bridge
+    from edgegan_torch import checkpoint as ckpt
+    from edgegan_torch.cli import evaluate as evaluate_cli
+    from edgegan_torch.cli import fid_curve
+    from edgegan_torch.cli import train_extractor as te
+    from edgegan_torch.core.config import Config
+    from edgegan_torch.data.dataset import Dataset
+    from edgegan_torch.data.genshapes import stage
+    from edgegan_torch.evaluation import pinned_extractor
+    from edgegan_torch.ops import kernels
+    from edgegan_torch.train.networks import Networks
+    from edgegan_torch.train.state import create_train_state
+
+    recipe = te.recipe()
+    n = recipe.num_classes
+    root = os.path.join(tmp, 'genshapes_data')
+    per_train, per_test = QUALITY_PER_CLASS
+    t0 = time.perf_counter()
+    stage(root, seed=te.STAGE_SEED, train_per_class=per_train,
+          test_per_class=per_test, num_classes=n)
+    stage_s = time.perf_counter() - t0
+    files = [os.path.join(root, 'genshapes', *p) for p in (
+        ('train', '0', '0000.png'), ('train', '7', '0003.png'),
+        ('test', str(n - 1), f'{per_test - 1:04d}.png'))]
+    print(f'quality: staged {n} classes x {per_train} train / {per_test} '
+          f'test genshapes pairs in {stage_s:.2f} s (the recipe stages '
+          f'{te.STAGE_TRAIN} / {te.STAGE_TEST}: cut for time); Pillow '
+          f'{PIL.__version__}; sha256[:16] ' + ', '.join(
+              f'{os.path.relpath(f, root)} {_sha(f)}' for f in files))
+
+    launches, results = {}, {}
+    held_out = 1   # one held-out batch: its pairs are fewer than 64
+    for on in (True, False):
+        label = f'train_extractor, switches {"on" if on else "off"}'
+        steps = QUALITY_STEPS[on]
+        npz = os.path.join(tmp, f'extractor_{int(on)}', 'fid_extractor.npz')
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        with classifier_switches(on), contextlib.redirect_stdout(
+                io.StringIO()):
+            meta, losses = te.train(steps, npz, root, 'cuda')
+        wall = time.perf_counter() - t0
+        launches[label] = counts = dict(kernels.LAUNCHES)
+        want = _add_counts(
+            expected_launches('extractor', torch.float32, on, steps, recipe),
+            evaluate_launches(recipe, on, 0, held_out, recipe))
+        check(counts == want, f'{label}: launches {counts}, expected {want}')
+        check(len(losses) == steps and all(map(math.isfinite, losses)),
+              f'{label}: losses {losses}')
+        first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+        if on:
+            check(last < first, f'{label}: loss {first:.4f} over the first '
+                  f'5 steps, {last:.4f} over the last 5')
+        with open(npz + '.json') as f:
+            check(json.load(f) == meta, f'{label}: sidecar differs')
+        results[label] = {'wall_s': wall, 'loss_first5': float(first),
+                          'loss_last5': float(last), **meta}
+        print(f'{label}: {steps} steps at batch {te.BATCH} in {wall:.3f} s '
+              f'with start-up (host clock), loss {first:.4f} -> {last:.4f} '
+              f'(mean of the first / last 5), held-out accuracy '
+              f'{meta["heldout_accuracy"]}, npz {meta["artifact_bytes"]} '
+              f'bytes; launches K5 {counts["prelu_bwd"]}, K3 '
+              f'{counts["mru_gate_blend"]}, K4 {counts["mru_gate_bwd"]} '
+              f'[{card}]')
+    npz = os.path.join(tmp, 'extractor_1', 'fid_extractor.npz')
+
+    dataset = Dataset(root, 'genshapes', te.BATCH, te.BATCH,
+                      te.dataset_config(recipe), n)
+    images, _z, names = dataset[0]
+    photos = images[:, :, recipe.output_width // 2:, :]
+    card_feats = pinned_extractor(npz, 'cuda')(photos)
+    cpu_feats = pinned_extractor(npz, 'cpu')(photos)
+    scale = float(np.abs(cpu_feats).max())
+    err = float(np.abs(card_feats - cpu_feats).max()) / scale
+    check(card_feats.shape == (te.BATCH, 768) and err <= FEATURE_TOL,
+          f'trained extractor features card vs CPU: {err:.3g} of the '
+          'largest |feature|')
+    results['features_card_vs_cpu_of_max'] = err
+    print(f'quality: the trained npz through evaluation.pinned_extractor, '
+          f'{te.BATCH} photos: card vs CPU {err:.3g} of the largest '
+          f'|feature| ({scale:.4f}; limit {FEATURE_TOL}) [{card}]')
+
+    # the step alone, switches off and on in turns
+    device = torch.device('cuda')
+    x = torch.from_numpy(images).to(device)
+    labels = te.class_labels(names, device)
+    classifier = te.initial_classifier(recipe).to(device)
+    step_ms = {False: [], True: []}
+    for on in STEP_TURNS:
+        step = te.make_train_step(classifier, recipe)
+        with classifier_switches(on):
+            step_ms[on].append(cuda_ms(lambda: step(x, labels),
+                                       QUALITY_TIMED))
+    results['step_ms'] = {f'switches {"on" if on else "off"}': v
+                          for on, v in step_ms.items()}
+    print('quality: the extractor step at batch 64, float32, CUDA events '
+          f'over {QUALITY_TIMED} steps after 3, in turns off, on, on, off: '
+          + ', '.join(f'switches {"on" if on else "off"} '
+                      + ' / '.join(f'{v:.3f}' for v in ms) + ' ms'
+                      for on, ms in step_ms.items()) + f' [{card}]')
+
+    # the FID-vs-step sweep over a run's retained checkpoints
+    config = Config().derive('train')
+    out = os.path.join(tmp, 'outputs')
+    ckpt_dir = os.path.join(out, 'smoke', 'checkpoints')
+    if not ckpt.steps(ckpt_dir):   # the train phase did not run
+        for seed, counter in enumerate((2, 5)):
+            nets = bridge.load_jax_params(
+                Networks(config, critics=True),
+                *bridge.random_jax_params(config, seed, critics=True))
+            ckpt.save(ckpt_dir, counter, create_train_state(nets.to(device)))
+    data = os.path.join(tmp, 'data')
+    if not os.path.isdir(os.path.join(data, 'ds', 'eval')):
+        write_dataset(data, QUALITY_LIMIT, config.num_classes,
+                      config.output_height, config.output_width, seed=5,
+                      split='eval')
+    retained = ckpt.steps(ckpt_dir)
+    flags = ['--dataroot', data, '--dataset', 'ds', '--outputsroot', out,
+             '--name', 'smoke', '--limit', str(QUALITY_LIMIT),
+             '--eval_batch', str(QUALITY_LIMIT), '--extractor_npz', npz]
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with classifier_switches(True, GATE), contextlib.redirect_stdout(buf):
+        summary = fid_curve.main(flags + ['--splits', 'eval', '--outdir',
+                                          os.path.join(tmp, 'fidcurve')])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    label = 'fid_curve, trained extractor, gate on'
+    launches[label] = counts = dict(kernels.LAUNCHES)
+    rows = summary['curve']
+    check([r['step'] for r in rows] == retained,
+          f'fid_curve rows {[r["step"] for r in rows]}, retained {retained}')
+    check(all(math.isfinite(r['eval']['classifier_fid']) for r in rows),
+          f'fid_curve: {rows}')
+    printed = buf.getvalue().strip().splitlines()
+    check([json.loads(line) for line in printed[:len(rows)]] == rows,
+          'fid_curve: printed rows differ from fidcurve.json')
+    want = evaluate_launches(config, True, len(rows), 2 * len(rows), recipe)
+    check(counts == want, f'{label}: launches {counts}, expected {want}')
+    with classifier_switches(True, GATE), contextlib.redirect_stdout(
+            io.StringIO()):
+        single = evaluate_cli.main(flags + ['--split', 'eval', '--step',
+                                            str(retained[-1])])
+    point = rows[-1]['eval']['classifier_fid']
+    check(math.isclose(point, single['classifier_fid'], rel_tol=1e-6),
+          f'fid_curve at step {retained[-1]}: {point}, cli.evaluate '
+          f'{single["classifier_fid"]}')
+    results['fid_curve'] = {'wall_s': wall, 'rows': rows,
+                            'evaluate_at_last_step': single['classifier_fid'],
+                            'plot': printed[-2] if len(printed) > len(rows)
+                            + 1 else 'written'}
+    print(f'{label}: {len(rows)} points x {QUALITY_LIMIT} pairs in '
+          f'{wall:.3f} s with start-up (host clock); FIDs '
+          + ', '.join(f'{r["step"]}: {r["eval"]["classifier_fid"]}'
+                      for r in rows)
+          + f'; cli.evaluate at step {retained[-1]} '
+          f'{single["classifier_fid"]}; launches K1 '
+          f'{counts["instance_norm_act"]}, K3 {counts["mru_gate_blend"]}'
+          f'; {printed[-2] if len(printed) > len(rows) + 1 else "plot written"}'
+          f' [{card}]')
+    return launches, results
+
+
 def tf_import_phase(card: str, tmp: str):
     """`convert.export_tf_npz` -> `import_tf_npz` of the default 14-class
     trees (every network, random weights) bit-exact, and G2's forward on
@@ -2775,6 +3002,12 @@ def profile_steps(card: str, label: str, step, n: int = 10,
 
 PARALLEL_RANKS = 2
 PARALLEL_TIMED_STEPS = 3
+# jittered runs of the one-process step whose largest distance from it is
+# the step's own sensitivity: the card's step is not bitwise repeatable
+# (on an H100 one jittered run's distance ranged 2.5e-5 to 8.4e-4 for
+# the joint critic's update), so one run can understate it; the CPU
+# tests take the largest of three jittered JAX runs
+PARALLEL_JITTERED = 3
 PARALLEL_TIMEOUT_S = 600
 
 
@@ -3012,7 +3245,8 @@ def parallel_phase(card: str, tmp: str):
       rank), switches off and on: each rank's parameters after the step
       bitwise equal, the 2-rank step held to this process's one-process
       card step within 3x the step's own sensitivity (`_held_to_cpu`: the
-      same step on inputs moved by 1e-6), K1/K2 (and with the switches K5,
+      largest distance of PARALLEL_JITTERED runs of the same step on
+      inputs moved by 1e-6), K1/K2 (and with the switches K5,
       K3, K4) launches per rank as `expected_launches` plans them; the
       time per step of each beside the one-process step's.
     - `cli.test --test_batch_size 16` from the NCCL run's checkpoint at 2
@@ -3068,8 +3302,9 @@ def parallel_phase(card: str, tmp: str):
     one = {}
     for on in (False, True):
         one[on] = dp_step_run(config, case, 'cuda', on, PARALLEL_TIMED_STEPS)
-        one[on]['jittered'] = dp_step_run(config, case, 'cuda', on,
-                                          jittered=True)
+        one[on]['jittered'] = [
+            dp_step_run(config, case, 'cuda', on, jittered=True)
+            for _ in range(PARALLEL_JITTERED)]
     test = base + ['--test_batch_size', '16']
     t0 = time.perf_counter()
     test_cli.main(test)
@@ -3131,9 +3366,9 @@ def parallel_phase(card: str, tmp: str):
                 f'{n} ranks, switches {key}, against one process',
                 (res[0][key]['metrics'], params),
                 (base_ms['metrics'], base_ms['params']),
-                [((base_ms['jittered']['metrics'],
-                   base_ms['jittered']['params']),
-                  (base_ms['metrics'], base_ms['params']))], case[0],
+                [((j['metrics'], j['params']),
+                  (base_ms['metrics'], base_ms['params']))
+                 for j in base_ms['jittered']], case[0],
                 names=(f'{n} ranks', 'one process'))
             check(ok, f'the {n}-rank step differs from one process beyond '
                   'the limits')
@@ -3375,6 +3610,9 @@ def main() -> int:
         phase('hires', hires_phase, card, tmp)
         phase('host_cost', host_cost_phase, card)
         phase('parallel', parallel_phase, card, tmp)
+        # last: every earlier phase runs in the process state it ran in
+        # before this phase existed
+        phase('quality', quality_phase, card, tmp)
     if failed:
         print(f'chip_smoke: failed phases: {", ".join(failed)}',
               file=sys.stderr)
@@ -3392,8 +3630,10 @@ def main() -> int:
     h_launches, h_steps, h_per_call, h_err = results['hires']
     train_launches, extras_ms = results['train']
     e_launches, e_results = results['evaluate']
+    q_launches, q_results = results['quality']
     train_runs = {**train_launches, **results['lifecycle'], **v_launches,
-                  **h_launches, **e_launches, **results['parallel']}
+                  **h_launches, **e_launches, **q_launches,
+                  **results['parallel']}
 
     def per_call(kname):
         """K1-K4's per-call times at this slice's new planes: the convnet
@@ -3519,7 +3759,8 @@ def main() -> int:
                          for (d, on), t in fast_times.items()},
         'variant_step_ms': v_steps, 'hires_step_ms': h_steps,
         'host_us_per_call': results['host_cost'],
-        'summaries_extras': extras_ms, 'evaluate': e_results}))
+        'summaries_extras': extras_ms, 'evaluate': e_results,
+        'quality': q_results}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

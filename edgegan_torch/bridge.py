@@ -183,8 +183,19 @@ def _load(networks: Dict[str, torch.nn.Module], params, aux):
 def export_jax_params(nets: Networks):
     """The inverse of `load_jax_params`: (params, aux) numpy trees of the
     networks `nets` holds, in the JAX layouts."""
-    trees = {'params': {}, 'aux': {net: {} for net in nets.names}}
-    for coll, path, t, kind, _ in _entries(_networks(nets)):
+    return _export(_networks(nets))
+
+
+def export_classifier(classifier: Classifier):
+    """The inverse of `load_classifier`: the classifier's own (params,
+    aux) trees, without the 'D2' level."""
+    params, aux = _export({'D2': classifier})
+    return params['D2'], aux['D2']
+
+
+def _export(networks: Dict[str, torch.nn.Module]):
+    trees = {'params': {}, 'aux': {net: {} for net in networks}}
+    for coll, path, t, kind, _ in _entries(networks):
         _set(trees[coll], path, to_jax_layout(t, kind, path[-1]))
     return trees['params'], trees['aux']
 

@@ -31,7 +31,9 @@ reader never sees half of one.
   the caller then broadcasts rank 0's state
   (`train.state.broadcast_state`).
 
-Waiting: loading a JAX (Orbax) checkpoint.
+A JAX (Orbax) checkpoint converts to this layout with
+scripts/jax_checkpoint_to_torch.py (outside the package: it needs JAX);
+the port then resumes from it at the JAX counter.
 """
 from __future__ import annotations
 

@@ -88,29 +88,49 @@ def _restore(checkpoint_dir: str, step: Optional[int]):
     return counter, raw
 
 
-def evaluate(argv=None):
-    """-> (the result dict that `main` prints, the real photo halves, the
-    generated photos), both NHWC float32 numpy in [-1, 1]."""
-    args = parse_args(argv)
+def setup(args):
+    """(config, device) of parsed `args`; refuses a single-class
+    configuration, and `cuda` without a card."""
     config = config_from_args(args).derive('test')
     if not config.multiclasses:
         raise SystemExit('classifier-FID needs a multiclass checkpoint '
                          '(the classifier only exists there)')
     device = torch.device(config.device(args.device))
     if device.type == 'cuda':
+        if not torch.cuda.is_available():
+            raise SystemExit('no CUDA device (pass --device cpu to evaluate '
+                             'on the CPU)')
         torch.cuda.set_device(device)
+    return config, device
+
+
+def make_extractor(args, config, device, counter: Optional[int] = None,
+                   raw=None):
+    """The feature extractor that `args` ask for: the pinned one
+    (`--extractor_npz`), or the classifier of the checkpoint at
+    `--extractor_step` (default: `counter`, whose trees `raw` are)."""
+    if args.extractor_npz:
+        return pinned_extractor(args.extractor_npz, device)
+    step = args.extractor_step if args.extractor_step is not None else counter
+    if raw is None or step != counter:
+        _, raw = _restore(config.checkpoint_dir, step)
+    classifier = load_classifier(Classifier(config.num_classes),
+                                 raw['params']['D2'], raw['aux']['D2'])
+    return classifier_extractor(classifier, device)
+
+
+def evaluate(argv=None, extractor=None):
+    """-> (the result dict that `main` prints, the real photo halves, the
+    generated photos), both NHWC float32 numpy in [-1, 1]. `extractor`,
+    when given, is the one that `make_extractor` gives for `argv`, made
+    once by a caller that evaluates several checkpoints."""
+    args = parse_args(argv)
+    config, device = setup(args)
 
     counter, raw = _restore(config.checkpoint_dir, args.step)
     nets = load_jax_params(Networks(config), raw['params'], raw['aux'])
-    if args.extractor_npz:
-        extractor = pinned_extractor(args.extractor_npz, device)
-    else:
-        eraw = raw
-        if args.extractor_step is not None and args.extractor_step != counter:
-            _, eraw = _restore(config.checkpoint_dir, args.extractor_step)
-        classifier = load_classifier(Classifier(config.num_classes),
-                                     eraw['params']['D2'], eraw['aux']['D2'])
-        extractor = classifier_extractor(classifier, device)
+    if extractor is None:
+        extractor = make_extractor(args, config, device, counter, raw)
 
     b = args.eval_batch
     dataset = Dataset(

@@ -13,7 +13,8 @@ starts at ONES, and epsilon sits INSIDE the square root:
     nu <- 0.9 nu + 0.1 g^2
     p  <- p - lr * g / sqrt(nu + 1e-10)
 `torch.optim.RMSprop` (alpha 0.99, eps outside the sqrt, zero slots) is
-not this, so it is written out here.
+not this, so it is written out here. `Adam` (optax.adam's arithmetic)
+trains the pinned FID extractor (`cli/train_extractor.py`).
 """
 from __future__ import annotations
 
@@ -98,3 +99,59 @@ class RMSProp:
         denom = torch._foreach_add(slots, self.eps)
         torch._foreach_sqrt_(denom)
         torch._foreach_addcdiv_(params, grads, denom, value=-self.lr)
+
+
+@dataclasses.dataclass
+class AdamState:
+    """Adam's step count and moments, one of each per parameter."""
+    count: int
+    mu: List[torch.Tensor]
+    nu: List[torch.Tensor]
+
+
+class Adam:
+    """optax.adam on lists of tensors, in place (the pinned FID
+    extractor's optimizer, scripts/train_fid_extractor.py:96).
+
+    optax's defaults (b1 0.9, b2 0.999, eps 1e-8 outside the square root,
+    eps_root 0, bias correction) and its order of operations, each op
+    rounded to float32 as optax rounds it:
+        mu <- (1 - b1) g + b1 mu          nu <- (1 - b2) g*g + b2 nu
+        c_i = 1 - b_i^count (float32)     p  <- p + (-lr) (mu/c_1) /
+                                                  (sqrt(nu/c_2) + eps)
+    `torch.optim.Adam` takes another order (and a fused step on the
+    card), so a few steps would not match JAX to rounding."""
+
+    def __init__(self, learning_rate: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        self.lr, self.b1, self.b2, self.eps = learning_rate, b1, b2, eps
+
+    @staticmethod
+    def init(params: List[torch.Tensor]) -> AdamState:
+        def zeros():
+            return [torch.zeros_like(p, memory_format=torch.contiguous_format)
+                    for p in params]
+        return AdamState(count=0, mu=zeros(), nu=zeros())
+
+    def _correction(self, decay: float, count: int, device):
+        """1 - decay^count in float32, as a 0-d tensor on `device`: the
+        moments are divided by it (not multiplied by its reciprocal)."""
+        power = torch.tensor(decay, dtype=torch.float32) ** torch.tensor(
+            count, dtype=torch.int32)
+        return (1 - power).to(device)
+
+    @torch.no_grad()
+    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+               state: AdamState):
+        b1, b2 = self.b1, self.b2
+        torch._foreach_mul_(state.mu, b1)
+        torch._foreach_add_(state.mu, torch._foreach_mul(grads, 1 - b1))
+        torch._foreach_mul_(state.nu, b2)
+        torch._foreach_add_(state.nu, torch._foreach_mul(
+            torch._foreach_mul(grads, grads), 1 - b2))
+        state.count += 1
+        c1 = self._correction(b1, state.count, params[0].device)
+        c2 = self._correction(b2, state.count, params[0].device)
+        for p, m, v in zip(params, state.mu, state.nu):
+            step = (m / c1) / (torch.sqrt(v / c2) + self.eps)
+            p.add_(step * -self.lr)
