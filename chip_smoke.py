@@ -10,7 +10,8 @@ the package is missing, and on any failed check.
 1. Prints the card's name and power limit (nvidia-smi) and builds the
    hand-written kernels from edgegan_torch/csrc (nvcc, sm_90a, one
    process per source); prints the registers and spills per thread of
-   K1's and K2's kernels in each variant.
+   K1's and K2's kernels in each variant (lane groups, blocks, ragged
+   groups, multi-pass; a spill fails the run).
 2. K1 phase: `instance_norm_act` against its plain PyTorch version on the
    card, at the three shapes the generators give it (batch 16 and 64,
    float32 and bfloat16, no activation / relu / lrelu, one constant plane
@@ -23,10 +24,12 @@ the package is missing, and on any failed check.
 3. K2 phase: `instance_norm_act_bwd` the same way against
    `instance_norm_act_bwd_plain`, and the autograd Function's gradient
    (K1 forward, K2 backward) against autograd of the plain forward. Then
-   both kernels in both variants (lane group, multi-pass) at ragged,
-   generator, large and misaligned planes (`ops/in_checks.py`): within
-   the limits, the plain versions within them of float64, two runs
-   bitwise equal, launch counts per variant as planned.
+   both kernels in all four variants (lane group, block, ragged group,
+   multi-pass) at ragged, generator, large and misaligned planes
+   (`ops/in_checks.py`): within the limits, the plain versions within
+   them of float64, two runs bitwise equal, launch counts per variant as
+   planned; planes holding an inf and a NaN give NaN and inf where the
+   plain versions do.
 4. K5 phase: `prelu_bwd` against `prelu_bwd_plain` at the classifier's 14
    PReLU shapes at batch 64, float32 and bfloat16, leaks 0.2 and 1.5,
    exact zeros in x: dx within K1's limits, dleak within DLEAK_RTOL of the
@@ -126,17 +129,20 @@ the package is missing, and on any failed check.
    after a warm-up, peak memory) with its K1/K2 launches per variant as
    `expected_launches` plans them. For the convnet encoder, K1 and K2 on
    its six normed blocks' planes at batch 64 (the 1x1 and, in bfloat16,
-   2x2 planes in the multi-pass kernel) held to their plain versions and
-   timed per call, then 2 CLI steps, a resume and one `cli.test` forward
-   from the checkpoint (K1 12 launches).
+   2x2 planes in ragged groups) held to their plain versions and timed
+   per call beside the multi-pass kernel (the earlier design) and
+   F.instance_norm+relu, then 2 CLI steps, a resume and one `cli.test`
+   forward from the checkpoint (K1 12 launches).
 12. Hires phase: 128x256 pairs (BASELINE config 5) at batch 64, faithful,
    both switches on: 2 CLI steps in float32 on synthetic pairs (launches
-   as planned: g_dconv_3's 64x64 planes and MRU unit 1's 128x128 gate in
-   the multi-pass kernels), the step timed in float32 and bfloat16 with
-   peak memory, and K1/K2 at [64, 64, 64, 64] and K3/K4 at [64, 8, 128,
-   128] held to their plain versions (two runs bitwise equal) and timed
-   per call beside their bounds; K5 at the 9 hires PReLU shapes held and
-   timed per call, and summed over a step's 42 calls.
+   as planned: g_dconv_3's 64x64 planes in K1/K2's block variant, MRU
+   unit 1's 128x128 gate in K3/K4's multi-pass kernels), the step timed
+   in float32 and bfloat16 with peak memory, and K1/K2 at [64, 64, 64,
+   64] (beside the multi-pass kernel and F.instance_norm+relu) and K3/K4
+   at [64, 8, 128, 128] held to their plain versions (two runs bitwise
+   equal) and timed per call beside their bounds; K5 at the 9 hires
+   PReLU shapes held and timed per call, and summed over a step's 42
+   calls.
 13. Parallel phase (data parallelism, `edgegan_torch.parallel`) at the
    default configuration: `cli.train` under `torchrun --standalone
    --nproc_per_node 1` (one rank over NCCL) for 3 steps and a resume;
@@ -262,6 +268,22 @@ def check(cond, msg):
         raise RuntimeError(f'check failed: {msg}')
 
 
+# K1's and K2's multi-pass kernel (the earlier design): no plane of a path
+# this script drives reaches it, now that blocks hold the hires planes and
+# ragged groups the convnet encoder's 1x1 and 2x2 planes
+IN_MULTI_PASS = ('instance_norm_act.multi_pass',
+                 'instance_norm_act_bwd.multi_pass')
+
+
+def check_launches(label: str, counts, want):
+    """`kernels.LAUNCHES` after a driven run (`counts`) as planned
+    (`want`), and K1's and K2's multi-pass launches 0 there."""
+    check(counts == want, f'{label}: launches {counts}, expected {want}')
+    check(all(counts.get(k, 0) == 0 for k in IN_MULTI_PASS),
+          f'{label}: K1/K2 multi-pass launches '
+          f'{[counts.get(k) for k in IN_MULTI_PASS]}')
+
+
 def card_line() -> str:
     out = subprocess.run(['nvidia-smi', '-i', '0', '--query-gpu=name,'
                           'power.limit', '--format=csv,noheader'],
@@ -352,7 +374,8 @@ def multi_pass(entry, x, *tensors):
     """One launch of K1's or K2's multi-pass kernel (`entry`, variant 0:
     one block per plane, the earlier design) with relu on contiguous
     CUDA `x` and the other tensors of its shape, outputs last. Only for
-    timing it beside the lane groups: not counted in `LAUNCHES`."""
+    timing it beside the variant the plan picks: not counted in
+    `LAUNCHES`."""
     from edgegan_torch.ops import kernels
     b, c, h, w = x.shape
     err = entry(x.data_ptr(), *(t.data_ptr() for t in tensors), b * c,
@@ -379,10 +402,12 @@ def k1_bounds_ms(shape, dtype):
 def in_registers(card: str):
     """Registers and local memory (spill) bytes per thread of K1's and
     K2's kernels as built (cudaFuncGetAttributes, the numbers
-    `nvcc -Xptxas -v` prints), relu, in the variant each plane size takes:
-    the generators' planes (lane groups) and 65536 elements (multi-pass).
-    Returns {'K1 float32 1024 lane_group 32x8': (regs,
-    local bytes), ...}."""
+    `nvcc -Xptxas -v` prints), relu, in every (variant, lanes, vectors)
+    that `instance_norm_plan` can pick: the lane groups, the blocks (up to
+    their largest plane, 4096 float32 or 8192 bfloat16 elements), the
+    ragged groups (up to 256 elements) and the multi-pass kernel; fails on
+    local memory. Returns {'K1 float32 block 256x4': (regs, local
+    bytes), ...}."""
     import ctypes
 
     import torch
@@ -393,25 +418,32 @@ def in_registers(card: str):
     table = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split('.')[-1]
-        for hw in [h * w for _, h, w in SERVE_SHAPES] + [65536]:
-            variant, lanes, vectors = kernels.instance_norm_plan(hw, dtype, 0)
+        per_vector = 16 // dtype.itemsize
+        reach = kernels.IN_THREADS * kernels.BLOCK_VECTORS * per_vector
+        plans = sorted({kernels.instance_norm_plan(hw, dtype, addr)
+                        for hw in range(1, reach + per_vector + 1)
+                        for addr in (0, dtype.itemsize)})
+        for variant, lanes, vectors in plans:
             for bwd, kname in ((0, 'K1'), (1, 'K2')):
                 err = lib.edgegan_instance_norm_act_attrs(
                     bwd, kernels._DTYPES[dtype], 1,
                     kernels.IN_VARIANTS[variant], lanes, vectors, out)
                 check(err == 0, f'{kname} {variant} attributes: error {err}')
-                key = f'{kname} {dname} {hw} {variant} {lanes}x{vectors}'
+                key = f'{kname} {dname} {variant} {lanes}x{vectors}'
                 table[key] = (out[0], out[1])
                 print(f'{key}: {out[0]} registers per thread, {out[1]} bytes '
                       f'of local memory (spills) [{card}]')
+    spills = {k: v for k, v in table.items() if v[1]}
+    check(not spills, f'K1/K2 kernels spill: {spills}')
     return table
 
 
 def previous_design_us(name, entry, x, *tensors):
     """Device time per call (warm, cold L2), in µs, of K1's or K2's
     multi-pass kernel at x's shape, with relu, after checking its output
-    against the lane-group kernel's on the same inputs (`tensors`: the
-    inputs after x; the output is made here)."""
+    against the planned variant's (lane group, block or ragged group) on
+    the same inputs (`tensors`: the inputs after x; the output is made
+    here)."""
     import torch
 
     from edgegan_torch.ops import kernels
@@ -423,7 +455,8 @@ def previous_design_us(name, entry, x, *tensors):
     tol = TOL[dname] if name == 'instance_norm_act_fwd' else K2_TOL[dname]
     band = kernels.instance_norm_act_plain(x, None).float().abs() < GATE_BAND
     err, ok, _ = _close(got, want, tol, band)
-    check(ok, f'{name} multi-pass differs from the lane group by {err:.3g}')
+    check(ok, f'{name} multi-pass differs from the planned variant by '
+              f'{err:.3g}')
     return device_us(
         lambda *t: multi_pass(entry, *t), name, cold_copies(
             lambda: (x.clone(),) + tuple(t.clone() for t in tensors)
@@ -653,12 +686,14 @@ def k2_phase(card: str):
 
 
 def in_variants_phase(card: str):
-    """K1 and K2 in both variants against their plain versions, within TOL
-    and K2_TOL, by `in_checks.check_kernels`: the plane sizes of
+    """K1 and K2 in all four variants against their plain versions, within
+    TOL and K2_TOL, by `in_checks.check_kernels`: the plane sizes of
     `in_checks.EDGE_PLANES`, 37 planes with plane 0 constant, float32 and
-    bfloat16, three activations; and a contiguous input at a storage
-    offset of one element (off 16 bytes), which must take the multi-pass
-    kernels. Returns the largest differences."""
+    bfloat16, three activations; contiguous inputs at a storage offset of
+    one element (off 16 bytes), an 8x8 plane (a ragged group) and a 64x64
+    one (the multi-pass kernel); and at each plane size, planes holding an
+    inf and a NaN held element by element to the plain versions
+    (`in_checks.check_nonfinite`). Returns the largest differences."""
     import torch
 
     from edgegan_torch.ops import in_checks, kernels
@@ -669,12 +704,13 @@ def in_variants_phase(card: str):
         dname = str(dtype).split('.')[-1]
         for hw in in_checks.EDGE_PLANES:
             x, g = in_checks.edge_inputs(dev, hw, dtype, seed=4)
-            cases = [(x, g, f'{dname} {list(x.shape)}')]
-            if hw == (8, 8):
+            xn = in_checks.with_nonfinite(x)
+            cases = [(x, g, xn, f'{dname} {list(x.shape)}')]
+            if hw in ((8, 8), (64, 64)):
                 cases.append((in_checks.shifted(x), in_checks.shifted(g),
-                              f'{dname} {list(x.shape)} at a storage '
-                              f'offset of 1'))
-            for xc, gc, label in cases:
+                              in_checks.shifted(xn), f'{dname} '
+                              f'{list(x.shape)} at a storage offset of 1'))
+            for xc, gc, xnc, label in cases:
                 want = kernels.instance_norm_plan(
                     hw[0] * hw[1], dtype, xc.data_ptr() | gc.data_ptr())[0]
                 seen.add(want)
@@ -682,9 +718,13 @@ def in_variants_phase(card: str):
                     xc, gc, TOL[dname], K2_TOL[dname], want, label=label)
                 max_err['K1'] = max(max_err['K1'], e1)
                 max_err['K2'] = max(max_err['K2'], e2)
+                in_checks.check_nonfinite(xnc, gc, TOL[dname],
+                                          K2_TOL[dname], want, label=label)
                 print(f'{label} ({want}): K1 and K2 within the limits, the '
                       f'plain versions within them of float64, three '
-                      f'activations, two runs bitwise equal [{card}]')
+                      f'activations, two runs bitwise equal; with an inf and '
+                      f'a NaN plane, NaN and inf where the plain versions '
+                      f'give them [{card}]')
     check(seen == set(kernels.IN_VARIANTS), f'variants reached: {seen}')
     print(f'K1/K2 variants: max abs diff K1 {max_err["K1"]:.3g}, K2 '
           f'{max_err["K2"]:.3g} [{card}]')
@@ -877,9 +917,9 @@ def expected_launches(kind: str, dtype, switches: bool, steps: float = 1,
     None), with `extras` calls of the summaries' sample forward (G1 and
     G2 on a float32 z; the critics on the plain path): K1 and K2 on each
     plane set of `in_planes` in the variant `instance_norm_plan` picks for
-    it (lane groups at the default sizes; multi-pass for ragged planes,
-    such as the encoder's 1x1, and beyond 1024 float32 / 2048 bfloat16
-    elements, such as the hires generator's 64x64), K3's and K4's in the
+    it (lane groups at the default sizes; ragged groups for the encoder's
+    1x1 planes and, in bfloat16, its 2x2; blocks for the hires generator's
+    64x64), K3's and K4's in the
     variants where `gate_plan` sends the four gates, K5 and K3/K4 only
     with the switches on."""
     import torch
@@ -942,7 +982,7 @@ def gate_registers(card: str):
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split('.')[-1]
         per_vector = 16 // dtype.itemsize
-        reach = kernels.IN_THREADS * kernels.GATE_BLOCK_VECTORS * per_vector
+        reach = kernels.IN_THREADS * kernels.BLOCK_VECTORS * per_vector
         plans = sorted({kernels.gate_plan(hw, dtype, 0)
                         for hw in range(1, reach + per_vector + 1)})
         for variant, lanes, vectors in plans:
@@ -1361,8 +1401,7 @@ def train_phase(card: str, tmp: str):
         want = expected_launches(
             'faithful', torch.bfloat16 if 'bfloat16' in flags
             else torch.float32, switches, steps, extras=extras)
-        check(counts == want, f'{label}: launches {counts} for {steps} '
-              f'steps, expected {want}')
+        check_launches(f'{label} ({steps} steps)', counts, want)
         params, _ = bridge.export_jax_params(state.nets)
         moved = {net: max(float(np.abs(a - b).max()) for a, b in zip(
             _leaves(params[net]), _leaves(run_start[net]))) for net in params}
@@ -1663,8 +1702,7 @@ def evaluate_phase(card: str, tmp: str):
             want = evaluate_launches(
                 config, gate, forwards, 2 * forwards,
                 pinned_config if extractor == 'pinned' else config)
-            check(counts == want, f'{label}: launches {counts}, expected '
-                  f'{want}')
+            check_launches(label, counts, want)
             results[label] = {'wall_s': wall,
                               'images_per_s': EVAL_PAIRS / wall, **result}
             print(f'{label}: {EVAL_PAIRS} pairs at batch {EVAL_BATCH} in '
@@ -1790,7 +1828,7 @@ def quality_phase(card: str, tmp: str):
         want = _add_counts(
             expected_launches('extractor', torch.float32, on, steps, recipe),
             evaluate_launches(recipe, on, 0, held_out, recipe))
-        check(counts == want, f'{label}: launches {counts}, expected {want}')
+        check_launches(label, counts, want)
         check(len(losses) == steps and all(map(math.isfinite, losses)),
               f'{label}: losses {losses}')
         first, last = np.mean(losses[:5]), np.mean(losses[-5:])
@@ -1884,7 +1922,7 @@ def quality_phase(card: str, tmp: str):
     check([json.loads(line) for line in printed[:len(rows)]] == rows,
           'fid_curve: printed rows differ from fidcurve.json')
     want = evaluate_launches(config, True, len(rows), 2 * len(rows), recipe)
-    check(counts == want, f'{label}: launches {counts}, expected {want}')
+    check_launches(label, counts, want)
     with classifier_switches(True, GATE), contextlib.redirect_stdout(
             io.StringIO()):
         single = evaluate_cli.main(flags + ['--split', 'eval', '--step',
@@ -2055,8 +2093,7 @@ def lifecycle_phase(card: str, tmp: str):
                 state, wall = counted(label, train_cli.main,
                                       base + options + flags)
             want = expected_launches(LIFECYCLE, dtype, True, steps)
-            check(launches[label] == want, f'{label}: launches '
-                  f'{launches[label]}, expected {want}')
+            check_launches(label, launches[label], want)
             print(f'{label}: {steps} steps of batch {b} ({LIFECYCLE}, '
                   f'switches on) in {wall:.3f} s with start-up (host clock); '
                   f'launches per step K1 {want["instance_norm_act"] / steps:g}'
@@ -2332,7 +2369,8 @@ def card_vs_cpu_phase(card: str):
           f'[{card}]')
     check((counts['prelu_bwd'], counts['mru_gate_blend'],
            counts['mru_gate_bwd']) == (K5_PER_STEP, K3_PER_STEP,
-                                       K4_PER_STEP),
+                                       K4_PER_STEP)
+          and all(counts[k] == 0 for k in IN_MULTI_PASS),
           f'the switched card step launched {counts}')
     ok = True
     for label, got in (('with the classifier switches off', card_run),
@@ -2421,8 +2459,7 @@ def step_time_phase(card: str, update_mode: str = 'faithful'):
                             for k, v in kernels.LAUNCHES.items()}
             want = expected_launches(update_mode, getattr(torch, dtype),
                                      switches)
-            check(launched == want, f'{label}: launches per step '
-                  f'{launched}, expected {want}')
+            check_launches(f'{label} (per step)', launched, want)
             for name in ('mru_gate_blend', 'mru_gate_bwd'):
                 print(f'  {name}: {launched[name]:g} launches per step, by '
                       f'variant ' + str({v: launched[f'{name}.{v}'] for v in
@@ -2555,22 +2592,29 @@ def per_call_times(card: str, label: str, key: str, match: str, fn, args,
 
 
 def in_planes_timed(card: str, label: str, shapes):
-    """K1 and K2 at batch 64 on each (C, H, W) of `shapes`, float32 and
-    bfloat16: held to their plain versions by `in_checks.check_kernels`
-    (TOL and K2_TOL, three activations, two runs bitwise equal, in the
-    variant `instance_norm_plan` picks, the plain versions within the
-    limits of float64), then timed per call with relu: device time from
-    the profile (warm and cold L2) and CUDA events, beside the bound and
-    the plain version's time. Returns ({'K1', 'K2'}: max abs error,
-    {'K1 float32 [64, C, H, W] variant': {...ms...}, ...})."""
+    """K1 and K2 at batch 64 on each distinct (C, H, W) of `shapes`,
+    float32 and bfloat16: held to their plain versions by
+    `in_checks.check_kernels` (TOL and K2_TOL, three activations, two runs
+    bitwise equal, in the variant `instance_norm_plan` picks, the plain
+    versions within the limits of float64), then timed per call with relu:
+    device time from the profile (warm and cold L2) and CUDA events,
+    beside the bound, the plain version's time, where the plan picks a
+    block or a ragged group the multi-pass kernel's device time on the
+    same inputs (the earlier design, `previous_design_us`), and F.relu of
+    F.instance_norm forward and backward (a yardstick: eps inside the
+    sqrt; None at a 1x1 plane, which it refuses). Returns ({'K1', 'K2'}:
+    max abs error, {'K1 float32 [64, C, H, W] variant relu': {...ms...},
+    ...})."""
     import torch
+    import torch.nn.functional as F
 
-    from edgegan_torch.ops import in_checks, kernels
+    from edgegan_torch.ops import _build, in_checks, kernels
+    lib = _build.library()
     err = {'K1': 0.0, 'K2': 0.0}
     times = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split('.')[-1]
-        for c, h, w in shapes:
+        for c, h, w in dict.fromkeys(shapes):
             shape = (64, c, h, w)
             x, g = _batch64_inputs(shape, dtype, 11)
             variant = kernels.instance_norm_plan(
@@ -2579,19 +2623,42 @@ def in_planes_timed(card: str, label: str, shapes):
                 x, g, TOL[dname], K2_TOL[dname], variant,
                 label=f'{label} {dname} {list(shape)}')
             err['K1'], err['K2'] = max(err['K1'], e1), max(err['K2'], e2)
-            for kname, match, fn, args, tensors, ops, plain in (
+            xr = x.detach().requires_grad_(True)
+            yr = F.relu(F.instance_norm(xr)) if h * w > 1 else None
+            for kname, match, fn, args, tensors, ops, plain, entry, yard in (
                     ('K1', 'instance_norm_act_fwd',
                      lambda t: kernels.instance_norm_act(t, 'relu'), (x,), 2,
                      K1_OPS_PER_ELEMENT,
-                     lambda: kernels.instance_norm_act_plain(x, 'relu')),
+                     lambda: kernels.instance_norm_act_plain(x, 'relu'),
+                     lib.edgegan_instance_norm_act_fwd,
+                     lambda: F.relu(F.instance_norm(x))),
                     ('K2', 'instance_norm_act_bwd',
                      lambda t, u: kernels.instance_norm_act_bwd(t, u, 'relu'),
                      (x, g), 3, K2_OPS_PER_ELEMENT,
                      lambda: kernels.instance_norm_act_bwd_plain(x, g,
-                                                                 'relu'))):
+                                                                 'relu'),
+                     lib.edgegan_instance_norm_act_bwd,
+                     lambda: torch.autograd.grad(yr, xr, g,
+                                                 retain_graph=True))):
                 key = f'{kname} {dname} {list(shape)} {variant} relu'
-                times[key] = per_call_times(card, label, key, match, fn,
-                                            args, tensors, ops, plain)
+                t = per_call_times(card, label, key, match, fn, args,
+                                   tensors, ops, plain)
+                t['yardstick_ms'] = (cuda_ms(yard, 20) if yr is not None
+                                     else None)
+                extra = 'F.instance_norm+relu' + (
+                    '' if kname == 'K1' else ' backward') + (
+                    ' refuses a 1x1 plane' if yr is None else
+                    f' {t["yardstick_ms"]:.4f} ms (CUDA events; a '
+                    f'yardstick: eps inside the sqrt)')
+                if variant in ('block', 'ragged'):
+                    warm, cold = previous_design_us(match, entry, *args)
+                    t['previous_ms'], t['previous_cold_ms'] = (_ms(warm),
+                                                               _ms(cold))
+                    extra = (f'multi-pass (the earlier design) device '
+                             f'{_us(warm)} warm / {_us(cold)} cold L2 '
+                             f'(profile); ' + extra)
+                print(f'{label}: {key}: {extra} [{card}]')
+                times[key] = t
     return err, times
 
 
@@ -2604,7 +2671,7 @@ def variants_phase(card: str, tmp: str):
     after a warm-up (CUDA events, peak memory), its K1/K2 launches per
     variant as `expected_launches` plans them. For the convnet encoder
     also: K1 and K2 on its six normed blocks' planes at batch 64 (held and
-    timed, `in_planes_timed`; the 1x1 planes in the multi-pass kernel),
+    timed, `in_planes_timed`; the 1x1 planes in ragged groups),
     and the CLI path: 2 steps (a save at counter 2), a resume that takes
     1 more, and `cli.test` on one test pair from the checkpoint (its K1
     launches for one forward). Returns (launches by run, step times, K1/K2
@@ -2642,8 +2709,7 @@ def variants_phase(card: str, tmp: str):
         ms, peak, counts = _timed_steps(config, False)
         want = expected_launches('faithful', torch.float32, False,
                                  TIMED_STEPS + 1, config)
-        check(counts == want, f'{label}: launches {counts} for '
-              f'{TIMED_STEPS + 1} steps, expected {want}')
+        check_launches(f'{label} ({TIMED_STEPS + 1} steps)', counts, want)
         launches[f'variant {label}'] = counts
         steps[label] = dict(ms=ms, peak_gib=peak)
         per_step = {k: v // (TIMED_STEPS + 1) for k, v in counts.items()
@@ -2682,8 +2748,7 @@ def variants_phase(card: str, tmp: str):
         launches[run] = dict(kernels.LAUNCHES)
         want = expected_launches('faithful', torch.float32, False, n,
                                  econfig)
-        check(launches[run] == want, f'{run}: launches {launches[run]}, '
-              f'expected {want}')
+        check_launches(run, launches[run], want)
         print(f'{run}: {n} steps of batch {b} in {wall:.3f} s with start-up '
               f'(host clock) [{card}]')
     rows = read_metrics(log)   # step 3: the resumed run's line
@@ -2700,16 +2765,15 @@ def variants_phase(card: str, tmp: str):
     launches['convnet E test'] = dict(kernels.LAUNCHES)
     want = forward_launches(Config(if_resnet_e=False).derive('test'),
                             torch.float32)
-    check(launches['convnet E test'] == want, f'convnet E test: launches '
-          f'{launches["convnet E test"]}, expected {want}')
+    check_launches('convnet E test', launches['convnet E test'], want)
     test_dir = os.path.join(out, 'convnet_e', 'test_output', 'ds')
     got = sorted(os.path.relpath(os.path.join(d, f), test_dir)
                  for d, _, fs in os.walk(test_dir) for f in fs)
     check(got == valid, f'convnet E test wrote {got}, expected {valid}')
     print(f'convnet E: cli.test from checkpoint 2 wrote {got}; K1 '
           f'{want["instance_norm_act"]} launches for one forward '
-          f'({want["instance_norm_act.multi_pass"]} in the multi-pass '
-          f'kernel: the 1x1 planes) [{card}]')
+          f'({want["instance_norm_act.ragged"]} in ragged groups: the 1x1 '
+          f'planes) [{card}]')
     return launches, steps, per_call, err
 
 
@@ -2717,12 +2781,14 @@ def hires_phase(card: str, tmp: str):
     """The hires configuration (HIRES: 128x128 halves, 128x256 pairs;
     BASELINE config 5) at batch 64, faithful, both classifier switches on:
     `cli.train` for 2 steps in float32 on synthetic 128x256 pairs (every
-    metric finite, launches as planned: g_dconv_3's 64x64 planes and MRU
-    unit 1's 128x128 gate in the multi-pass kernels); the step timed in
+    metric finite, launches as planned: g_dconv_3's 64x64 planes in K1/K2's
+    block variant, MRU unit 1's 128x128 gate in K3/K4's multi-pass
+    kernels); the step timed in
     float32 and bfloat16 (CUDA events over TIMED_STEPS steps after a
     warm-up, peak memory); K1/K2 on g_dconv_3's [64, 64, 64, 64] and
     K3/K4 on unit 1's [64, 8, 128, 128] held to their plain versions
-    (two runs bitwise equal) and timed per call beside their bounds.
+    (two runs bitwise equal) and timed per call beside their bounds (K1/K2
+    also beside the multi-pass kernel and F.instance_norm+relu).
     Returns (launches by run, step times, per-call times, max errors)."""
     import math
 
@@ -2751,7 +2817,7 @@ def hires_phase(card: str, tmp: str):
     launches['hires train float32, switches on'] = counts = dict(
         kernels.LAUNCHES)
     want = expected_launches('faithful', torch.float32, True, 2, config)
-    check(counts == want, f'hires CLI: launches {counts}, expected {want}')
+    check_launches('hires CLI', counts, want)
     rows = read_metrics(os.path.join(root, 'outputs', 'hires', 'logs',
                                      'metrics.jsonl'))
     check([r['step'] for r in rows] == [2, 3] and all(
@@ -2759,9 +2825,9 @@ def hires_phase(card: str, tmp: str):
         f'hires CLI metrics: {rows}')
     print(f'hires CLI: 2 steps of batch {b} at {h}x{w} in {wall:.3f} s with '
           f'start-up (host clock); per step K1 {want["instance_norm_act"] / 2:g}'
-          f' ({want["instance_norm_act.multi_pass"] / 2:g} multi-pass), K2 '
+          f' ({want["instance_norm_act.block"] / 2:g} block), K2 '
           f'{want["instance_norm_act_bwd"] / 2:g} '
-          f'({want["instance_norm_act_bwd.multi_pass"] / 2:g} multi-pass), '
+          f'({want["instance_norm_act_bwd.block"] / 2:g} block), '
           f'K5 {want["prelu_bwd"] / 2:g}, K3 {want["mru_gate_blend"] / 2:g} '
           f'({want["mru_gate_blend.multi_pass"] / 2:g} multi-pass), K4 '
           f'{want["mru_gate_bwd"] / 2:g} [{card}]')
@@ -2773,8 +2839,7 @@ def hires_phase(card: str, tmp: str):
         ms, peak, counts = _timed_steps(dconfig, True)
         want = expected_launches('faithful', getattr(torch, dtype), True,
                                  TIMED_STEPS + 1, dconfig)
-        check(counts == want, f'hires {dtype}: launches {counts}, expected '
-              f'{want}')
+        check_launches(f'hires {dtype}', counts, want)
         steps[dtype] = dict(ms=ms, peak_gib=peak)
         print(f'hires faithful step at batch {b} {dtype}, switches on: '
               f'{ms:.3f} ms (CUDA events, {TIMED_STEPS} steps after 1), peak '
@@ -3355,9 +3420,8 @@ def parallel_phase(card: str, tmp: str):
                   f'{n} ranks, switches {key}: the parameters differ '
                   'between ranks')
             for r, got in enumerate(res):
-                check(got[key]['launches'] == want, f'{n} ranks, rank {r}, '
-                      f'switches {key}: launches {got[key]["launches"]}, '
-                      f'expected {want}')
+                check_launches(f'{n} ranks, rank {r}, switches {key}',
+                               got[key]['launches'], want)
                 launches[f'parallel step, {n} ranks, rank {r}, switches '
                          f'{key}'] = got[key]['launches']
             with np.load(os.path.join(d, f'params_{key}.npz')) as f:
@@ -3636,8 +3700,11 @@ def main() -> int:
                   **results['parallel']}
 
     def per_call(kname):
-        """K1-K4's per-call times at this slice's new planes: the convnet
-        encoder's (K1/K2) and the hires configuration's multi-pass ones."""
+        """K1-K4's per-call times at the planes beyond the default
+        configuration's: the convnet encoder's (K1/K2; its 1x1 and 2x2
+        planes in ragged groups) and the hires configuration's (K1/K2 in
+        blocks, K3/K4 multi-pass), K1/K2 beside the multi-pass kernel
+        where they left it and beside F.instance_norm+relu."""
         return {
             'convnet_encoder_planes': {k: v for k, v in v_per_call.items()
                                        if k.startswith(kname)},

@@ -16,11 +16,14 @@ ACTS = (None, 'relu', 'lrelu')
 # kernel and the plain version may each take either slope, so K2 leaves
 # those elements out of the comparison.
 GATE_BAND = 1e-4
-# Plane sizes (H, W) that reach both variants: 1, 9 and 63 elements (not
-# whole 16-byte vectors: multi-pass), the generators' 64, 256 and 1024
-# (lane groups), 4096 and 65536 (beyond a lane group: multi-pass).
-EDGE_PLANES = [(1, 1), (3, 3), (7, 9), (8, 8), (16, 16), (32, 32), (64, 64),
-               (256, 256)]
+# Plane sizes (H, W) that reach every variant: 1, 9 and 63 elements (not
+# whole 16-byte vectors: ragged), 4 (a lane group in float32, ragged in
+# bfloat16), the generators' 64, 256 and 1024 (lane groups), 2048 (a block
+# in float32, a lane group in bfloat16), 4096 (a block), 8192 (beyond a
+# block in float32: multi-pass; a block in bfloat16) and 65536 (beyond a
+# block: multi-pass).
+EDGE_PLANES = [(1, 1), (2, 2), (3, 3), (7, 9), (8, 8), (16, 16), (32, 32),
+               (32, 64), (64, 64), (64, 128), (256, 256)]
 
 
 def edge_inputs(device, hw, dtype, planes: int = 37, seed: int = 0):
@@ -32,6 +35,15 @@ def edge_inputs(device, hw, dtype, planes: int = 37, seed: int = 0):
     x[0, 0] = 3.0
     g = torch.randn(x.shape, generator=gen)
     return x.to(device, dtype), g.to(device, dtype)
+
+
+def with_nonfinite(x):
+    """A copy of `x` (3 planes or more) in which plane (0, 1) holds an inf
+    at its first element and plane (0, 2) a NaN at its last."""
+    out = x.clone()
+    out[0, 1].view(-1)[0] = float('inf')
+    out[0, 2].view(-1)[-1] = float('nan')
+    return out
 
 
 def shifted(t):
@@ -50,10 +62,17 @@ def _require(cond, msg: str):
         raise AssertionError(msg)
 
 
-def _within(got, ref, tol, skip=None):
-    """(max |got - ref| outside `skip`, all within atol + rtol |ref| there)."""
+def _within(got, ref, tol, skip=None, equal_nan: bool = False):
+    """(max |got - ref| outside `skip`, all within atol + rtol |ref| there).
+    With `equal_nan`, an element that is NaN in both, or the same inf in
+    both, counts as equal (difference 0)."""
     diff = (got.float() - ref.float()).abs()
     ok = diff <= tol['atol'] + tol['rtol'] * ref.float().abs()
+    if equal_nan:
+        same = (got.float() == ref.float()) | (got.float().isnan()
+                                               & ref.float().isnan())
+        ok |= same
+        diff = torch.where(same, torch.zeros_like(diff), diff)
     if skip is not None:
         ok |= skip
         diff = torch.where(skip, torch.zeros_like(diff), diff)
@@ -126,3 +145,35 @@ def check_kernels(x, g, tol, bwd_tol, variant: str,
             _require(ok, f'{what}: K2 plain differs from float64 on the '
                      f'constant plane by {e:.3g}')
     return err1, err2
+
+
+def check_nonfinite(x, g, tol, bwd_tol, variant: str, label: str = ''):
+    """K1 and K2 on CUDA tensors (x, g) whose planes hold an inf and a NaN
+    (`with_nonfinite`), once with each activation, against their plain
+    versions element by element: NaN where the plain version gives NaN,
+    the same inf where it gives an inf, and within `tol` (K1) and
+    `bwd_tol` (K2, leaving out the |y_pre| < GATE_BAND band with an
+    activation) elsewhere, the other planes included. Raises
+    AssertionError unless both launched in `variant`, and unless the
+    plain versions give a NaN in both planes (so the check sees one)."""
+    band = kernels.instance_norm_act_plain(x, None).float().abs() < GATE_BAND
+    for act in ACTS:
+        what = f'{label} act={act} (inf and NaN planes)'
+        before = dict(kernels.LAUNCHES)
+        y = kernels.instance_norm_act(x, act)
+        dx = kernels.instance_norm_act_bwd(x, g, act)
+        torch.cuda.synchronize()
+        for name in ('instance_norm_act', 'instance_norm_act_bwd'):
+            key = f'{name}.{variant}'
+            _require(kernels.LAUNCHES[key] == before[key] + 1,
+                     f'{what}: {name} not launched as {variant}')
+        for kname, got, ref, lim, skip in (
+                ('K1', y, kernels.instance_norm_act_plain(x, act), tol,
+                 None),
+                ('K2', dx, kernels.instance_norm_act_bwd_plain(x, g, act),
+                 bwd_tol, band if act else None)):
+            _require(bool(ref[0, 1].float().isnan().any())
+                     and bool(ref[0, 2].float().isnan().any()),
+                     f'{what}: {kname} plain gives no NaN there')
+            e, ok = _within(got, ref, lim, skip, equal_nan=True)
+            _require(ok, f'{what}: {kname} differs from plain by {e:.3g}')

@@ -22,22 +22,30 @@ K3, `mru_gate_blend`, and K4, `mru_gate_bwd`: the MRU unit's min-max gate
 
 K1 and K2 (csrc/instance_norm_act.cu) normalise each contiguous NCHW
 (batch, channel) plane with float32 statistics, in the generators' three
-DeconvBlocks: K1 6 times per served batch and 21 times per training step,
-K2 12 times per training step. The plane is read from device memory once
-and held in registers, and the sums are taken from there, in one of two
-variants that `instance_norm_plan` picks from the plane's size and the
-tensors' alignment:
+DeconvBlocks (and the convnet encoder's blocks): K1 6 times per served
+batch and 21 times per training step, K2 12 times per training step.
+The plane is read from device memory once and held in registers, and the
+sums are taken from there, in one of three variants that
+`instance_norm_plan` picks from the plane's size and the tensors'
+alignment:
   - 'lane_group': 4 to 32 threads per plane, several planes per block,
     sums by warp shuffles, up to 1024 float32 or 2048 bfloat16 elements.
     Every plane of the default configurations (64, 256 and 1024
     elements) takes it.
-  - 'multi_pass': one block walks the plane once per sum; it takes larger
-    planes, and those that do not split into 16-byte vectors (a plane size
-    or a base address that is not a multiple of 16 bytes).
-Their bound is bytes, and one read of each input is what it allows.
+  - 'block': the whole block on one plane, 2 or 4 16-byte vectors a
+    thread, up to 4096 float32 or 8192 bfloat16 elements: the hires
+    generator's 64x64 planes.
+  - 'ragged': 1 to 32 threads per plane holding single elements at any
+    alignment, for planes that do not split into 16-byte vectors (a plane
+    size or a base address that is not a multiple of 16 bytes) of up to
+    256 elements: the convnet encoder's 1x1 planes (and 2x2 in bfloat16).
+A fourth, 'multi_pass', one block walking the plane once per sum (the
+earlier design), takes what none of them holds: aligned planes beyond a
+block and ragged or misaligned planes beyond 256 elements. The bound is
+bytes, and one read of each input is what it allows.
 K3 and K4 (csrc/mru_gate.cu) hold each plane of the MRU gate the same way
 (`gate_plan`): lane groups for MRU units 2 to 4, and for unit 1's 4096
-elements a 'block' variant, the whole block on one plane. K5, K3 and K4
+elements the block variant; they build no ragged variant. K5, K3 and K4
 run in the classifier, and only when their switches are on
 (`prelu_enabled`, `gate_enabled`): 42, 12 and 12 times per training step
 (three classifier passes, each through 14 PReLUs and 4 MRU gates).
@@ -66,14 +74,16 @@ EPS = 1e-5
 _ACTS = {None: 0, 'relu': 1, 'lrelu': 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# K1's and K2's variants (instance_norm_act.cu) and their numbers there
-IN_VARIANTS = {'multi_pass': 0, 'lane_group': 1}
-# K3's and K4's (mru_gate.cu): those and the block-wide group
-GATE_VARIANTS = {**IN_VARIANTS, 'block': 2}
+# K3's and K4's variants (mru_gate.cu) and their numbers there
+GATE_VARIANTS = {'multi_pass': 0, 'lane_group': 1, 'block': 2}
+# K1's and K2's (instance_norm_act.cu): those and the ragged lane group
+IN_VARIANTS = {**GATE_VARIANTS, 'ragged': 3}
 IN_THREADS = 256      # threads a block, in every variant but K3/K4's
                       # multi-pass kernel (32 to 256 by the plane's size)
 IN_MAX_VECTORS = 8    # 16-byte vectors a lane-group thread holds, at most
-GATE_BLOCK_VECTORS = 4  # and a thread of K3/K4's block variant
+BLOCK_VECTORS = 4     # and a thread of the block variant (K1-K4)
+RAGGED_ELEMENTS = 8   # elements a thread of a ragged group holds, at most
+RAGGED_REACH = 32 * RAGGED_ELEMENTS  # the largest ragged plane
 # Launches per kernel, counted where the kernel is launched and nowhere
 # else, and per variant ('instance_norm_act.lane_group', ...). Callers
 # reset an entry to 0 to count one run.
@@ -221,7 +231,7 @@ def _pow2_at_least(n: int) -> int:
 
 
 def plane_plan(hw: int, dtype: torch.dtype, data_ptr: int,
-               block_vectors: int = 0):
+               ragged_reach: int = 0):
     """(variant, lanes, vectors) of a per-plane kernel (K1-K4) for planes
     of `hw` elements of `dtype` at `data_ptr` (the tensors' addresses
     OR-ed together, so that one misaligned pointer shows): `lanes` threads
@@ -231,36 +241,42 @@ def plane_plan(hw: int, dtype: torch.dtype, data_ptr: int,
       or 2048 bfloat16 elements): one vector a thread and as few lanes as
       hold the plane (at least 4), or 32 lanes and as few vectors.
     - 'block' (lanes 256) beyond that while the plane fits 256 threads x
-      `block_vectors` vectors, as few vectors as hold it; 0 (K1/K2, which
-      build no such variant) skips it.
-    - 'multi_pass' (lanes 256, vectors 0) beyond that, and wherever the
-      plane does not split into whole 16-byte vectors from a 16-byte
-      boundary: `hw` not a multiple of 16 / itemsize, or `data_ptr` not a
-      multiple of 16."""
+      BLOCK_VECTORS vectors (4096 float32 or 8192 bfloat16 elements), as
+      few vectors as hold it.
+    - Where the plane does not split into whole 16-byte vectors from a
+      16-byte boundary (`hw` not a multiple of 16 / itemsize, or
+      `data_ptr` not a multiple of 16): 'ragged' up to `ragged_reach`
+      elements (0: K3/K4, which build no such variant), as few lanes as
+      hold the plane at up to RAGGED_ELEMENTS elements each (1 lane for a
+      1x1 plane) and as few elements (`vectors`) a lane.
+    - 'multi_pass' (lanes 256, vectors 0) for every other plane."""
     per_vector = 16 // dtype.itemsize
     nvec, ragged = divmod(hw, per_vector)
     if ragged or data_ptr % 16:
+        if hw <= ragged_reach:
+            lanes = _pow2_at_least(-(-hw // RAGGED_ELEMENTS))
+            return 'ragged', lanes, _pow2_at_least(-(-hw // lanes))
         return 'multi_pass', IN_THREADS, 0
     if nvec <= 32:
         return 'lane_group', max(4, _pow2_at_least(nvec)), 1
     if nvec <= 32 * IN_MAX_VECTORS:
         return 'lane_group', 32, _pow2_at_least(-(-nvec // 32))
-    if nvec <= IN_THREADS * block_vectors:
+    if nvec <= IN_THREADS * BLOCK_VECTORS:
         return 'block', IN_THREADS, _pow2_at_least(-(-nvec // IN_THREADS))
     return 'multi_pass', IN_THREADS, 0
 
 
 def instance_norm_plan(hw: int, dtype: torch.dtype, data_ptr: int):
-    """K1's and K2's (variant, lanes, vectors): `plane_plan` without the
-    block variant."""
-    return plane_plan(hw, dtype, data_ptr)
+    """K1's and K2's (variant, lanes, vectors): `plane_plan` with ragged
+    groups for ragged or misaligned planes of up to RAGGED_REACH
+    elements."""
+    return plane_plan(hw, dtype, data_ptr, RAGGED_REACH)
 
 
 def gate_plan(hw: int, dtype: torch.dtype, data_ptr: int):
-    """K3's and K4's (variant, lanes, vectors): `plane_plan` with blocks
-    of up to GATE_BLOCK_VECTORS vectors a thread (4096 float32 or 8192
-    bfloat16 elements, MRU unit 1's planes)."""
-    return plane_plan(hw, dtype, data_ptr, GATE_BLOCK_VECTORS)
+    """K3's and K4's (variant, lanes, vectors): `plane_plan` without the
+    ragged variant."""
+    return plane_plan(hw, dtype, data_ptr)
 
 
 def _launch_planes(name: str, entry, plan, x, *tensors, act=()):
@@ -268,7 +284,7 @@ def _launch_planes(name: str, entry, plan, x, *tensors, act=()):
     contiguous NCHW `x` and the other tensors of its shape (outputs last),
     in the variant that `plan` picks, `act` (K1/K2's activation) after the
     dtype; raises if the library refuses it. Both sources number the
-    variants they share alike, so GATE_VARIANTS numbers K1/K2's too."""
+    variants they share alike, so IN_VARIANTS numbers K3/K4's too."""
     b, c, h, w = x.shape
     addr = 0
     for t in (x,) + tensors:
@@ -276,7 +292,7 @@ def _launch_planes(name: str, entry, plan, x, *tensors, act=()):
     variant, lanes, vectors = plan(h * w, x.dtype, addr)
     with torch.cuda.device(x.device):
         err = entry(x.data_ptr(), *(t.data_ptr() for t in tensors), b * c,
-                    h * w, _DTYPES[x.dtype], *act, GATE_VARIANTS[variant],
+                    h * w, _DTYPES[x.dtype], *act, IN_VARIANTS[variant],
                     lanes, vectors, _stream(x))
     _raise_on(err, name)
     LAUNCHES[name] += 1

@@ -244,8 +244,8 @@ def test_gate_plan_is_built_holds_the_plane_and_never_vectorises_ragged():
 @pytest.mark.parametrize('dtype', DTYPES)
 def test_gate_plan_puts_mru_planes_in_registers(dtype):
     """At every batch, MRU units 2 to 4 take lane groups and unit 1's
-    4096-element planes the block variant; K1/K2's plan, which builds no
-    block variant, sends those to the multi-pass kernel."""
+    4096-element planes the block variant; K1/K2's plan sends those to
+    its own block variant, in the same shape."""
     want = {torch.float32: [('block', 256, 4), ('lane_group', 32, 8),
                             ('lane_group', 32, 2), ('lane_group', 16, 1)],
             torch.bfloat16: [('block', 256, 2), ('lane_group', 32, 4),
@@ -254,8 +254,7 @@ def test_gate_plan_puts_mru_planes_in_registers(dtype):
         for (c, h, w), plan in zip(GATE_SHAPES, want[dtype]):
             x = torch.empty(batch, c, h, w, dtype=dtype)
             assert kernels.gate_plan(h * w, dtype, x.data_ptr()) == plan
-    assert kernels.instance_norm_plan(4096, dtype, 0) == ('multi_pass',
-                                                          256, 0)
+    assert kernels.instance_norm_plan(4096, dtype, 0) == want[dtype][0]
 
 
 @pytest.fixture(scope='module')

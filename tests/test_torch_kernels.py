@@ -36,8 +36,8 @@ def cuda():
 
 
 # (act, plane H x W): the 8x4 planes of `_x`, and the sizes the kernels'
-# variants split on: 1, 9 and 63 elements (not whole 16-byte vectors) and
-# 4096 (beyond a lane group)
+# variants split on: 1, 9 and 63 elements (not whole 16-byte vectors: the
+# ragged groups) and 4096 (beyond a lane group: a block)
 IN_CASES = [pytest.param(act, hw, id=str(act) if hw == (8, 4)
                          else f'{act}-{hw[0]}x{hw[1]}')
             for hw in [(8, 4), (1, 1), (3, 3), (7, 9), (64, 64)]
@@ -54,6 +54,36 @@ def test_plain_matches_pallas_interpret(act, hw):
         torch.from_numpy(x).permute(0, 3, 1, 2), act)
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), ref,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize('act', ACTS)
+def test_plain_matches_pallas_interpret_on_nonfinite_planes(act):
+    """On planes holding an inf or a NaN (`in_checks.with_nonfinite`, at
+    1x1 and 8x4), K1's and K2's plain versions give what the Pallas
+    kernels give in interpret mode, element by element: NaN, the same
+    inf, or a value within 1e-5 (the other planes). The card checks hold
+    each kernel variant to these plain versions on such planes."""
+    jax = pytest.importorskip('jax')
+    jnp = jax.numpy
+    from edgegan_tpu.ops import pallas_kernels as pk
+    for hw in [(1, 1), (8, 4)]:
+        x = torch.from_numpy(_x((2,) + hw + (6,))).permute(0, 3, 1, 2)
+        x = in_checks.with_nonfinite(x.contiguous())
+        g = torch.from_numpy(np.random.RandomState(1).randn(
+            *x.shape).astype(np.float32))
+        xj = jnp.asarray(x.permute(0, 2, 3, 1).numpy())
+        ref, vjp = jax.vjp(lambda t: pk.instance_norm_act(t, act, True), xj)
+        dref, = vjp(jnp.asarray(g.permute(0, 2, 3, 1).numpy()))
+        for got, want in (
+                (kernels.instance_norm_act_plain(x, act), ref),
+                (kernels.instance_norm_act_bwd_plain(x, g, act), dref)):
+            want = torch.from_numpy(np.array(want)).permute(0, 3, 1, 2)
+            assert bool(want[0, 1].isnan().any())
+            assert bool(want[0, 2].isnan().all())
+            err, ok = in_checks._within(got, want, dict(atol=1e-5,
+                                                        rtol=1e-6),
+                                        equal_nan=True)
+            assert ok, (hw, act, err)
 
 
 def test_cpu_wrapper_is_plain_and_uncounted():
@@ -201,17 +231,22 @@ DTYPES = [torch.float32, torch.bfloat16]
 
 def _built_variants():
     """The (variant, lanes, vectors) that csrc/instance_norm_act.cu builds
-    kernels for: its EDGEGAN_LANE_GROUP_SHAPES list and the multi-pass
-    kernel."""
+    kernels for: its EDGEGAN_LANE_GROUP_SHAPES (7), EDGEGAN_BLOCK_SHAPES
+    (2) and EDGEGAN_RAGGED_SHAPES (9) lists and the multi-pass kernel."""
     with open(os.path.join(ROOT, 'edgegan_torch', 'csrc',
                            'instance_norm_act.cu')) as f:
         src = f.read()
-    shapes = src[src.index('#define EDGEGAN_LANE_GROUP_SHAPES'):]
-    shapes = shapes[:shapes.index('\n\n')]
-    built = {('lane_group', int(g), int(n))
-             for g, n in re.findall(r'X\((\d+), (\d+)\)', shapes)}
-    assert len(built) == 7, built
-    return built | {('multi_pass', 256, 0)}
+    built = {('multi_pass', 256, 0)}
+    for variant, macro, count in (('lane_group', 'LANE_GROUP', 7),
+                                  ('block', 'BLOCK', 2),
+                                  ('ragged', 'RAGGED', 9)):
+        shapes = src[src.index(f'#define EDGEGAN_{macro}_SHAPES'):]
+        shapes = shapes[:re.search(r'\)\n(?!  )', shapes).end()]
+        found = {(variant, int(g), int(n))
+                 for g, n in re.findall(r'X\((\d+), (\d+)\)', shapes)}
+        assert len(found) == count, found
+        built |= found
+    return built
 
 
 @pytest.mark.parametrize('batch', [16, 64])
@@ -231,39 +266,117 @@ def test_plan_puts_generator_planes_in_lane_groups(batch, dtype):
 @pytest.mark.parametrize('dtype', DTYPES)
 def test_plan_sends_large_planes_to_multi_pass(dtype):
     """Beyond 32 threads x 8 vectors (1024 float32 or 2048 bfloat16
-    elements) a plane is walked in passes: 4096 and 65536 elements."""
+    elements) a plane goes to one block of 256 threads holding 2 or 4
+    vectors each (up to 4096 float32 or 8192 bfloat16 elements); beyond
+    that it is walked in passes: 65536 elements."""
     per_vector = 16 // dtype.itemsize
     assert kernels.instance_norm_plan(256 * per_vector, dtype, 0) == (
         'lane_group', 32, 8)
-    for hw in (256 * per_vector + per_vector, 4096, 65536):
+    for hw, vectors in ((256 * per_vector + per_vector, 2),
+                        (512 * per_vector, 2),
+                        (512 * per_vector + per_vector, 4),
+                        (1024 * per_vector, 4)):
+        assert kernels.instance_norm_plan(hw, dtype, 0) == (
+            'block', 256, vectors), hw
+    for hw in (1024 * per_vector + per_vector, 65536):
         assert kernels.instance_norm_plan(hw, dtype, 0) == (
             'multi_pass', 256, 0)
+    # beyond 256 elements a ragged or misaligned plane is walked in passes
+    assert kernels.instance_norm_plan(257, dtype, 0) == ('multi_pass', 256,
+                                                         0)
+    assert kernels.instance_norm_plan(4096, dtype, 4) == ('multi_pass', 256,
+                                                          0)
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_plan_sends_ragged_planes_to_ragged_groups(dtype):
+    """A plane that does not split into whole 16-byte vectors from a
+    16-byte boundary, of up to 256 elements, goes to a ragged group: as
+    few lanes as hold it at up to 8 elements a lane (1 lane for 1 to 8
+    elements) and as few elements a lane, whether its size or its base is
+    off (8x8 at a storage offset of one element)."""
+    itemsize = dtype.itemsize
+    for hw, plan in ((1, (1, 1)), (2, (1, 2)), (3, (1, 4)), (7, (1, 8)),
+                     (9, (2, 8)), (17, (4, 8)), (63, (8, 8)),
+                     (65, (16, 8)), (255, (32, 8))):
+        if hw % (16 // itemsize):
+            assert kernels.instance_norm_plan(hw, dtype, 0) == (
+                'ragged',) + plan, hw
+        assert kernels.instance_norm_plan(hw, dtype, 4096 + itemsize) == (
+            'ragged',) + plan, hw
+    assert kernels.instance_norm_plan(64, dtype, 4096 + itemsize) == (
+        'ragged', 8, 8)
+    assert kernels.instance_norm_plan(256, dtype, 4096 + itemsize) == (
+        'ragged', 32, 8)
+
+
+def test_plan_routes_the_hires_and_convnet_encoder_planes():
+    """The hires generator's g_dconv_3 [64,64,64,64] takes the block
+    variant in both dtypes; the convnet encoder's [64,512,1,1] planes a
+    ragged group of one lane in both, and its [64,512,2,2] one in
+    bfloat16 (8 bytes a plane) and a lane group of 4 in float32 (16
+    bytes); the default generators' and the convnet encoder's other planes
+    stay in the lane groups that held them before the block and ragged
+    variants existed."""
+    def plan(shape, dtype):
+        x = torch.empty(shape, dtype=dtype)
+        return kernels.instance_norm_plan(shape[2] * shape[3], dtype,
+                                          x.data_ptr())
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert plan((64, 64, 64, 64), f32) == ('block', 256, 4)
+    assert plan((64, 64, 64, 64), bf16) == ('block', 256, 2)
+    for dtype in DTYPES:
+        assert plan((64, 512, 1, 1), dtype) == ('ragged', 1, 1)
+    assert plan((64, 512, 2, 2), bf16) == ('ragged', 1, 4)
+    assert plan((64, 512, 2, 2), f32) == ('lane_group', 4, 1)
+    want = {f32: [(16, 1), (32, 2), (32, 8), (4, 1)],
+            bf16: [(8, 1), (32, 1), (32, 4), (4, 1)]}
+    for dtype in DTYPES:
+        for (c, h, w), shape in zip(GEN_PLANES + [(512, 4, 4)],
+                                    want[dtype]):
+            assert plan((64, c, h, w), dtype) == ('lane_group',) + shape
 
 
 def test_plan_is_built_holds_the_plane_and_never_vectorises_ragged():
-    """For every plane size up to twice the lane groups' reach and every
-    misalignment: the plan names a kernel the source builds; a
-    vector variant is picked only for whole 16-byte vectors from a 16-byte
-    boundary, and holds the plane in at most twice the room it needs (or
-    in the smallest group); every other plane takes the multi-pass
-    kernel."""
+    """For every plane size up to twice the block's reach (8192 float32,
+    16384 bfloat16 elements) and every misalignment: the plan names a
+    kernel the source builds; a vector variant is picked only for whole
+    16-byte vectors from a 16-byte boundary, a lane group up to 32 x 8
+    vectors and a block up to 256 x 4, each holding the plane in at most
+    twice the room it needs (or in the smallest group); a ragged group
+    takes every other plane of up to 256 elements, in at most twice the
+    room it needs (or in one element); every other plane takes the
+    multi-pass kernel."""
     built = _built_variants()
+    reached = set()
     for dtype in DTYPES:
         per_vector = 16 // dtype.itemsize
-        for hw in range(1, 2 * 32 * 8 * per_vector + 2):
+        for hw in range(1, 2 * 256 * 4 * per_vector + 2):
+            nvec, ragged = divmod(hw, per_vector)
             for offset in (0, 2, 4, 8, 16, 48):
                 plan = kernels.instance_norm_plan(hw, dtype, 4096 + offset)
                 assert plan in built, (hw, dtype, offset, plan)
+                reached.add(plan)
                 variant, lanes, vectors = plan
-                nvec, ragged = divmod(hw, per_vector)
+                room = lanes * vectors
                 if ragged or offset % 16:
-                    assert variant == 'multi_pass', (hw, dtype, offset)
-                elif variant != 'multi_pass':
-                    room = lanes * vectors
-                    assert nvec <= room, (hw, dtype, plan)
-                    assert 2 * nvec > room or room == 4, (hw, dtype, plan)
+                    if hw <= 256:
+                        assert variant == 'ragged', (hw, dtype, offset)
+                        assert hw <= room, (hw, dtype, plan)
+                        assert 2 * hw > room or room == 1, (hw, dtype, plan)
+                    else:
+                        assert variant == 'multi_pass', (hw, dtype, offset)
+                    continue
+                if nvec <= 32 * 8:
+                    assert variant == 'lane_group', (hw, dtype, plan)
+                elif nvec <= 256 * 4:
+                    assert variant == 'block', (hw, dtype, plan)
                 else:
-                    assert nvec > 32 * 8, (hw, dtype)
+                    assert variant == 'multi_pass', (hw, dtype, plan)
+                    continue
+                assert nvec <= room, (hw, dtype, plan)
+                assert 2 * nvec > room or room == 4, (hw, dtype, plan)
+    assert reached == built
 
 
 @pytest.mark.cuda
@@ -354,39 +467,59 @@ K2_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
           torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 
 
+# The variant each plane of in_checks.EDGE_PLANES takes at a 16-byte
+# aligned base, float32 and bfloat16
+EDGE_VARIANT = {(1, 1): ('ragged', 'ragged'), (2, 2): ('lane_group', 'ragged'),
+                (3, 3): ('ragged', 'ragged'), (7, 9): ('ragged', 'ragged'),
+                (8, 8): ('lane_group', 'lane_group'),
+                (16, 16): ('lane_group', 'lane_group'),
+                (32, 32): ('lane_group', 'lane_group'),
+                (32, 64): ('block', 'lane_group'),
+                (64, 64): ('block', 'block'),
+                (64, 128): ('multi_pass', 'block'),
+                (256, 256): ('multi_pass', 'multi_pass')}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('hw', in_checks.EDGE_PLANES,
                          ids=lambda hw: f'{hw[0]}x{hw[1]}')
 def test_variants_match_plain_on_card(cuda, dtype, hw):
-    """Each variant, where the plan sends this plane size, against the
-    plain versions (and those against float64), with the per-variant
-    launch counts and two runs bitwise equal."""
+    """Each variant, where the plan sends this plane size, dtype and
+    (aligned) address, against the plain versions (and those against
+    float64), with the per-variant launch counts and two runs bitwise
+    equal; then on the same planes holding an inf and a NaN, element by
+    element against the plain versions."""
     x, g = in_checks.edge_inputs(cuda, hw, dtype)
+    assert (x.data_ptr() | g.data_ptr()) % 16 == 0
     variant, _, _ = kernels.instance_norm_plan(
         hw[0] * hw[1], dtype, x.data_ptr() | g.data_ptr())
-    assert variant == ('lane_group' if hw in [(8, 8), (16, 16), (32, 32)]
-                       else 'multi_pass')
+    assert variant == EDGE_VARIANT[hw][DTYPES.index(dtype)]
     in_checks.check_kernels(x, g, K1_TOL[dtype], K2_TOL[dtype], variant)
+    in_checks.check_nonfinite(in_checks.with_nonfinite(x), g, K1_TOL[dtype],
+                              K2_TOL[dtype], variant)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', DTYPES)
 def test_misaligned_input_takes_multi_pass_on_card(cuda, dtype):
     """A contiguous view at a storage offset of one element starts off a
-    16-byte boundary: K1 and K2 take the multi-pass kernel, and give what
-    the lane-group kernels give on the same values, within the limits. A
-    misaligned g alone sends K2 there too."""
-    x, g = in_checks.edge_inputs(cuda, (8, 8), dtype)
-    xs, gs = in_checks.shifted(x), in_checks.shifted(g)
+    16-byte boundary: K1 and K2 take a ragged group for an 8x8 plane and
+    the multi-pass kernel for a 64x64 one (beyond the ragged groups'
+    256 elements), and give what the aligned variants (lane group, block)
+    give on the same values, within the limits. A misaligned g alone sends
+    K2 there too."""
     tols = K1_TOL[dtype], K2_TOL[dtype]
-    in_checks.check_kernels(xs, gs, *tols, 'multi_pass')
-    in_checks.check_kernels(x, gs, *tols, 'lane_group',
-                            bwd_variant='multi_pass')
-    for act in ACTS:
-        torch.testing.assert_close(
-            kernels.instance_norm_act(xs, act).float(),
-            kernels.instance_norm_act(x, act).float(), **K1_TOL[dtype])
+    for hw, aligned, off in (((8, 8), 'lane_group', 'ragged'),
+                             ((64, 64), 'block', 'multi_pass')):
+        x, g = in_checks.edge_inputs(cuda, hw, dtype)
+        xs, gs = in_checks.shifted(x), in_checks.shifted(g)
+        in_checks.check_kernels(xs, gs, *tols, off)
+        in_checks.check_kernels(x, gs, *tols, aligned, bwd_variant=off)
+        for act in ACTS:
+            torch.testing.assert_close(
+                kernels.instance_norm_act(xs, act).float(),
+                kernels.instance_norm_act(x, act).float(), **K1_TOL[dtype])
 
 
 @pytest.mark.cuda
@@ -394,8 +527,11 @@ def test_library_refuses_impossible_variant_on_card(cuda):
     """The C entry points launch a variant only where it is built and
     holds the plane: 16 lanes x 1 vector hold a 64-element float32 plane;
     4 x 1 do not, 12 lanes are not built, and a base off 16 bytes is
-    refused (cudaErrorInvalidValue, 1), as are multi-pass with vectors
-    and a variant 2, which is not built."""
+    refused (cudaErrorInvalidValue, 1), as are multi-pass with vectors, a
+    block off 16 bytes or of 8 vectors (not built), a ragged group of 1
+    lane x 8 elements (room for 8 of the 64), one of 3 lanes (not built)
+    and a variant 4. A ragged group of 8 x 8 holds the plane at any
+    base."""
     from edgegan_torch.ops._build import library
     lib = library()
     x = torch.randn(1, 4, 8, 8, device=cuda)
@@ -411,7 +547,14 @@ def test_library_refuses_impossible_variant_on_card(cuda):
     assert fwd(x.data_ptr(), 1, 12, 1) == 1
     assert fwd(x.data_ptr() + 4, 1, 16, 1) == 1
     assert fwd(x.data_ptr(), 0, 256, 1) == 1
-    assert fwd(x.data_ptr(), 2, 256, 2) == 1
+    assert fwd(x.data_ptr(), 2, 256, 2) == 0
+    assert fwd(x.data_ptr() + 4, 2, 256, 2) == 1
+    assert fwd(x.data_ptr(), 2, 256, 8) == 1
+    off = torch.randn(4 * 64 + 1, device=cuda)   # 4 planes from element 1
+    assert fwd(off.data_ptr() + 4, 3, 8, 8) == 0
+    assert fwd(x.data_ptr(), 3, 1, 8) == 1
+    assert fwd(x.data_ptr(), 3, 3, 8) == 1
+    assert fwd(x.data_ptr(), 4, 256, 2) == 1
     # a lane group holds a plane smaller than its room, too
     assert lib.edgegan_instance_norm_act_bwd(
         x.data_ptr(), x.data_ptr(), y.data_ptr(), 4, 64, 0, 0, 1, 32, 8,
