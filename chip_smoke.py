@@ -38,7 +38,9 @@ the package is missing, and on any failed check.
    backward of F.prelu's (a yardstick: no tie split, and the same
    function only for 0 <= leak <= 1); and the Function's gradients.
 5. K3/K4 phases: the registers and spills per thread of K3's and K4's
-   kernels in each variant (none may spill); `mru_gate_blend` and
+   kernels in each variant (none may spill), and for each cluster shape
+   the clusters that can be resident at once (at least one);
+   `mru_gate_blend` and
    `mru_gate_bwd` against their plain versions at the classifier's four
    gate shapes at batch 64, float32 and bfloat16, a flat plane and ties at
    both extrema in each, in the variant `gate_plan` picks (block for unit
@@ -48,8 +50,10 @@ the package is missing, and on any failed check.
    cold L2) beside the byte bound, and the multi-pass kernel (the earlier
    design) on the same inputs, checked against the new one first; CUDA
    events and the plain versions' times (no single PyTorch call computes
-   either). Then both kernels in every variant at ragged, unit-sized,
-   large and misaligned planes.
+   either). Then both kernels in every variant (lane group, block,
+   cluster, multi-pass) at ragged, unit-sized, hires, large and
+   misaligned planes, and on planes holding +inf, NaN and -inf (NaN and
+   inf where the plain versions give them).
 6. Serving phase at full width: the default test configuration (64x128
    pairs, 14 classes, z_dim 100, gf_dim 64) with random weights from
    `bridge.random_jax_params` through the bridge, a `Batcher` on cuda
@@ -136,11 +140,12 @@ the package is missing, and on any failed check.
 12. Hires phase: 128x256 pairs (BASELINE config 5) at batch 64, faithful,
    both switches on: 2 CLI steps in float32 on synthetic pairs (launches
    as planned: g_dconv_3's 64x64 planes in K1/K2's block variant, MRU
-   unit 1's 128x128 gate in K3/K4's multi-pass kernels), the step timed
+   unit 1's 128x128 gate in K3/K4's cluster variant), the step timed
    in float32 and bfloat16 with peak memory, and K1/K2 at [64, 64, 64,
    64] (beside the multi-pass kernel and F.instance_norm+relu) and K3/K4
    at [64, 8, 128, 128] held to their plain versions (two runs bitwise
-   equal) and timed per call beside their bounds; K5 at the 9 hires
+   equal) and timed per call beside their bounds and the multi-pass
+   kernel (the earlier design) on the same inputs; K5 at the 9 hires
    PReLU shapes held and timed per call, and summed over a step's 42
    calls.
 13. Parallel phase (data parallelism, `edgegan_torch.parallel`) at the
@@ -268,20 +273,22 @@ def check(cond, msg):
         raise RuntimeError(f'check failed: {msg}')
 
 
-# K1's and K2's multi-pass kernel (the earlier design): no plane of a path
-# this script drives reaches it, now that blocks hold the hires planes and
-# ragged groups the convnet encoder's 1x1 and 2x2 planes
-IN_MULTI_PASS = ('instance_norm_act.multi_pass',
-                 'instance_norm_act_bwd.multi_pass')
+# K1's to K4's multi-pass kernels (the earlier design): no plane of a path
+# this script drives reaches them, now that blocks hold the hires
+# generator's planes, ragged groups the convnet encoder's 1x1 and 2x2
+# planes and clusters the hires unit 1's gate
+MULTI_PASS = ('instance_norm_act.multi_pass',
+              'instance_norm_act_bwd.multi_pass',
+              'mru_gate_blend.multi_pass', 'mru_gate_bwd.multi_pass')
 
 
 def check_launches(label: str, counts, want):
     """`kernels.LAUNCHES` after a driven run (`counts`) as planned
-    (`want`), and K1's and K2's multi-pass launches 0 there."""
+    (`want`), and K1's to K4's multi-pass launches 0 there."""
     check(counts == want, f'{label}: launches {counts}, expected {want}')
-    check(all(counts.get(k, 0) == 0 for k in IN_MULTI_PASS),
-          f'{label}: K1/K2 multi-pass launches '
-          f'{[counts.get(k) for k in IN_MULTI_PASS]}')
+    check(all(counts.get(k, 0) == 0 for k in MULTI_PASS),
+          f'{label}: multi-pass launches '
+          f'{[counts.get(k) for k in MULTI_PASS]}')
 
 
 def card_line() -> str:
@@ -725,7 +732,9 @@ def in_variants_phase(card: str):
                       f'activations, two runs bitwise equal; with an inf and '
                       f'a NaN plane, NaN and inf where the plain versions '
                       f'give them [{card}]')
-    check(seen == set(kernels.IN_VARIANTS), f'variants reached: {seen}')
+    # every variant of K1/K2's plan (the cluster is K3/K4's alone)
+    check(seen == set(kernels.IN_VARIANTS) - {'cluster'},
+          f'variants reached: {seen}')
     print(f'K1/K2 variants: max abs diff K1 {max_err["K1"]:.3g}, K2 '
           f'{max_err["K2"]:.3g} [{card}]')
     return max_err
@@ -969,20 +978,24 @@ def forward_launches(config, dtype, forwards: int = 1):
 def gate_registers(card: str):
     """Registers and local memory (spill) bytes per thread of K3's and K4's
     kernels as built, in every (variant, lanes, vectors) that `gate_plan`
-    can pick; fails on a spill. Returns {'K3 float32 block 256x4': (regs,
-    local bytes), ...}."""
+    can pick, and for a cluster the clusters of its shape that can be
+    resident on the card at once (cudaOccupancyMaxActiveClusters); fails
+    on a spill, and on a cluster shape of which none can be resident.
+    Returns {'K3 float32 block 256x4': (regs, local bytes, clusters or 0),
+    ...}."""
     import ctypes
 
     import torch
 
     from edgegan_torch.ops import _build, kernels
     lib = _build.library()
-    out = (ctypes.c_int * 2)()
+    out = (ctypes.c_int * 3)()
     table = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split('.')[-1]
         per_vector = 16 // dtype.itemsize
-        reach = kernels.IN_THREADS * kernels.BLOCK_VECTORS * per_vector
+        reach = (kernels.CLUSTER_BLOCKS * kernels.IN_THREADS
+                 * kernels.BLOCK_VECTORS * per_vector)
         plans = sorted({kernels.gate_plan(hw, dtype, 0)
                         for hw in range(1, reach + per_vector + 1)})
         for variant, lanes, vectors in plans:
@@ -992,9 +1005,15 @@ def gate_registers(card: str):
                     kernels.GATE_VARIANTS[variant], lanes, vectors, out)
                 check(err == 0, f'{kname} {variant} attributes: error {err}')
                 key = f'{kname} {dname} {variant} {lanes}x{vectors}'
-                table[key] = (out[0], out[1])
+                table[key] = (out[0], out[1], out[2])
+                extra = ''
+                if variant == 'cluster':
+                    check(out[2] > 0, f'{key}: no cluster can be resident')
+                    extra = (f', {out[2]} clusters of {lanes // 256} blocks '
+                             f'resident at once '
+                             f'({out[2] * lanes // 256} blocks)')
                 print(f'{key}: {out[0]} registers per thread, {out[1]} bytes '
-                      f'of local memory (spills) [{card}]')
+                      f'of local memory (spills){extra} [{card}]')
     spills = {k: v for k, v in table.items() if v[1]}
     check(not spills, f'K3/K4 kernels spill: {spills}')
     return table
@@ -1015,6 +1034,26 @@ def gate_previous(fwd: bool, *tensors):
                 kernels.IN_THREADS, 0, kernels._stream(x))
     check(err == 0, f'gate multi-pass launch failed: CUDA error {err}')
     return tensors[-1] if fwd else tensors[-2:]
+
+
+def previous_matches(rg, ht, img, g, dname: str, variant: str):
+    """The multi-pass kernels (the earlier design) on the same inputs as
+    the planned `variant`, held to it within TOL (K3) and K2_TOL (K4)
+    before either is timed."""
+    import torch
+
+    from edgegan_torch.ops import kernels
+    prev_out = gate_previous(True, rg, ht, img, torch.empty_like(rg))
+    prev_grads = gate_previous(False, rg, img, g, torch.empty_like(rg),
+                               torch.empty_like(img))
+    for what, got, want, tol in (
+            ('K3', prev_out, kernels.mru_gate_blend(rg, ht, img),
+             TOL[dname]),
+            *(('K4', a, b, K2_TOL[dname]) for a, b in zip(
+                prev_grads, kernels.mru_gate_bwd(rg, img, g)))):
+        err, ok, _ = _close(got, want, tol)
+        check(ok, f'{what} {dname} {list(rg.shape)}: multi-pass differs '
+                  f'from {variant} by {err:.3g}')
 
 
 def gate_phase(card: str):
@@ -1057,19 +1096,7 @@ def gate_phase(card: str):
                   f'{plan[2]}): K3 max abs diff {e3:.3g} (limit '
                   f'{TOL[dname]}), K4 {e4:.3g} (limit {K2_TOL[dname]}), '
                   f'two runs bitwise equal')
-            # the earlier design on the same inputs, checked first
-            prev_out = gate_previous(True, rg, ht, img, torch.empty_like(rg))
-            prev_grads = gate_previous(False, rg, img, g,
-                                       torch.empty_like(rg),
-                                       torch.empty_like(img))
-            for what, got, want, tol in (
-                    ('K3', prev_out, kernels.mru_gate_blend(rg, ht, img),
-                     TOL[dname]),
-                    *(('K4', a, b, K2_TOL[dname]) for a, b in zip(
-                        prev_grads, kernels.mru_gate_bwd(rg, img, g)))):
-                err, ok, _ = _close(got, want, tol)
-                check(ok, f'{what} {dname} {shape}: multi-pass differs from '
-                          f'{plan[0]} by {err:.3g}')
+            previous_matches(rg, ht, img, g, dname, plan[0])
             n, item = rg.numel(), rg.element_size()
             for key, fn, plain_fn, tensors, ops, make, prev, outs in (
                     ('K3', kernels.mru_gate_blend,
@@ -1143,7 +1170,9 @@ def gate_variants_phase(card: str):
     `gate_checks.GATE_PLANES`, 37 planes (plane 0 flat, plane 1 tied at
     both extrema), float32 and bfloat16; and contiguous inputs at a
     storage offset of one element (off 16 bytes), which must take the
-    multi-pass kernels. Returns the largest differences."""
+    multi-pass kernels. Then the same planes with +inf, NaN and -inf in
+    three of them (`gate_checks.check_gate_nonfinite`), in every variant.
+    Returns the largest differences."""
     import torch
 
     from edgegan_torch.ops import gate_checks, in_checks, kernels
@@ -1169,8 +1198,12 @@ def gate_variants_phase(card: str):
                     *tensors, TOL[dname], K2_TOL[dname], want, label=label)
                 max_err['K3'] = max(max_err['K3'], e3)
                 max_err['K4'] = max(max_err['K4'], e4)
+                gate_checks.check_gate_nonfinite(
+                    *tensors, TOL[dname], K2_TOL[dname], want, label=label)
                 print(f'{label} ({want}): K3 and K4 within the limits, two '
-                      f'runs bitwise equal [{card}]')
+                      f'runs bitwise equal; with +inf, NaN and -inf planes, '
+                      f'NaN and inf where the plain versions give them '
+                      f'[{card}]')
     check(seen == set(kernels.GATE_VARIANTS), f'variants reached: {seen}')
     print(f'K3/K4 variants: max abs diff K3 {max_err["K3"]:.3g}, K4 '
           f'{max_err["K4"]:.3g} [{card}]')
@@ -2370,7 +2403,7 @@ def card_vs_cpu_phase(card: str):
     check((counts['prelu_bwd'], counts['mru_gate_blend'],
            counts['mru_gate_bwd']) == (K5_PER_STEP, K3_PER_STEP,
                                        K4_PER_STEP)
-          and all(counts[k] == 0 for k in IN_MULTI_PASS),
+          and all(counts[k] == 0 for k in MULTI_PASS),
           f'the switched card step launched {counts}')
     ok = True
     for label, got in (('with the classifier switches off', card_run),
@@ -2568,27 +2601,39 @@ def _batch64_inputs(shape, dtype, seed: int):
 
 
 def per_call_times(card: str, label: str, key: str, match: str, fn, args,
-                   tensors: int, ops_per_element: int, plain):
+                   tensors: int, ops_per_element: int, plain, previous=None,
+                   outs=()):
     """One kernel's time per call on `args` (the first its output's
     shape): device time from the profile of kernels named `match` (warm
     and cold L2) and CUDA events, beside its bound (`tensors` tensors of
     that shape moved once, `ops_per_element` float32 operations) and the
-    plain version's time (`plain()`). Prints and returns them."""
+    plain version's time (`plain()`); with `previous`, the earlier design's
+    device time on the same inputs (`previous(*args, *outputs)`, outputs
+    shaped as `outs`). Prints and returns them."""
+    import torch
     n, size = args[0].numel(), args[0].element_size()
     warm, cold = device_us(fn, match, cold_copies(
         lambda: tuple(t.clone() for t in args), tensors * n * size))
     ms = cuda_ms(lambda: fn(*args), 20)
     plain_ms = cuda_ms(plain, 5, warmup=1)
     by_bytes, by_ops = bounds_ms(n, size, tensors, ops_per_element)
+    extra, said = {}, ''
+    if previous is not None:
+        pw, pc = device_us(previous, match, cold_copies(
+            lambda: tuple(t.clone() for t in args)
+            + tuple(torch.empty_like(t) for t in outs), tensors * n * size))
+        extra = dict(previous_ms=_ms(pw), previous_cold_ms=_ms(pc))
+        said = (f', multi-pass (the earlier design) device {_us(pw)} warm / '
+                f'{_us(pc)} cold L2')
     print(f'{label}: {key}: device {_us(warm)} warm / {_us(cold)} cold L2 '
           f'(profile), {ms:.4f} ms (CUDA events), bound '
           f'{max(by_bytes, by_ops):.4f} ms (bytes {by_bytes:.4f}, operations '
-          f'{by_ops:.4f}), plain {plain_ms:.4f} ms; held to plain, two runs '
-          f'bitwise equal [{card}]')
+          f'{by_ops:.4f}), plain {plain_ms:.4f} ms{said}; held to plain, two '
+          f'runs bitwise equal [{card}]')
     return dict(ms=ms, device_ms=_ms(warm), cold_ms=_ms(cold),
                 bound_ms=max(by_bytes, by_ops),
                 bound_by='bytes' if by_bytes >= by_ops else 'operations',
-                plain_ms=plain_ms)
+                plain_ms=plain_ms, **extra)
 
 
 def in_planes_timed(card: str, label: str, shapes):
@@ -2782,13 +2827,14 @@ def hires_phase(card: str, tmp: str):
     BASELINE config 5) at batch 64, faithful, both classifier switches on:
     `cli.train` for 2 steps in float32 on synthetic 128x256 pairs (every
     metric finite, launches as planned: g_dconv_3's 64x64 planes in K1/K2's
-    block variant, MRU unit 1's 128x128 gate in K3/K4's multi-pass
-    kernels); the step timed in
+    block variant, MRU unit 1's 128x128 gate in K3/K4's cluster
+    variant); the step timed in
     float32 and bfloat16 (CUDA events over TIMED_STEPS steps after a
     warm-up, peak memory); K1/K2 on g_dconv_3's [64, 64, 64, 64] and
     K3/K4 on unit 1's [64, 8, 128, 128] held to their plain versions
-    (two runs bitwise equal) and timed per call beside their bounds (K1/K2
-    also beside the multi-pass kernel and F.instance_norm+relu).
+    (two runs bitwise equal) and timed per call beside their bounds and
+    the multi-pass kernel on the same inputs, checked against the planned
+    variant first (K1/K2 also beside F.instance_norm+relu).
     Returns (launches by run, step times, per-call times, max errors)."""
     import math
 
@@ -2829,8 +2875,9 @@ def hires_phase(card: str, tmp: str):
           f'{want["instance_norm_act_bwd"] / 2:g} '
           f'({want["instance_norm_act_bwd.block"] / 2:g} block), '
           f'K5 {want["prelu_bwd"] / 2:g}, K3 {want["mru_gate_blend"] / 2:g} '
-          f'({want["mru_gate_blend.multi_pass"] / 2:g} multi-pass), K4 '
-          f'{want["mru_gate_bwd"] / 2:g} [{card}]')
+          f'({want["mru_gate_blend.cluster"] / 2:g} cluster), K4 '
+          f'{want["mru_gate_bwd"] / 2:g} '
+          f'({want["mru_gate_bwd.cluster"] / 2:g} cluster) [{card}]')
     print('  last metrics: ' + json.dumps(rows[-1]))
 
     steps = {}
@@ -2852,23 +2899,29 @@ def hires_phase(card: str, tmp: str):
         shape = (64,) + gate_shapes(config)[0]
         rg, ht, img, g = gate_checks.gate_inputs('cuda', shape, dtype, seed=12)
         addr = rg.data_ptr() | ht.data_ptr() | img.data_ptr() | g.data_ptr()
-        variant = kernels.gate_plan(shape[2] * shape[3], dtype, addr)[0]
-        check(variant == 'multi_pass', f'unit 1 at hires: {variant}')
+        plan = kernels.gate_plan(shape[2] * shape[3], dtype, addr)
+        variant = plan[0]
+        check(variant == 'cluster', f'unit 1 at hires: {variant}')
         e3, e4 = gate_checks.check_gate(
             rg, ht, img, g, TOL[dname], K2_TOL[dname], variant,
             label=f'hires unit 1 {dname} {list(shape)}')
         gate_err['K3'] = max(gate_err['K3'], e3)
         gate_err['K4'] = max(gate_err['K4'], e4)
-        for kname, match, fn, args, tensors, ops, plain in (
+        previous_matches(rg, ht, img, g, dname, variant)
+        for kname, match, fn, args, tensors, ops, plain, prev, outs in (
                 ('K3', 'mru_gate_fwd', kernels.mru_gate_blend, (rg, ht, img),
                  4, K3_OPS_PER_ELEMENT,
-                 lambda: kernels.mru_gate_blend_plain(rg, ht, img)),
+                 lambda: kernels.mru_gate_blend_plain(rg, ht, img),
+                 lambda *t: gate_previous(True, *t), (rg,)),
                 ('K4', 'mru_gate_bwd', kernels.mru_gate_bwd, (rg, img, g), 5,
                  K4_OPS_PER_ELEMENT,
-                 lambda: kernels.mru_gate_bwd_plain(rg, img, g))):
-            key = f'{kname} {dname} {list(shape)} {variant}'
+                 lambda: kernels.mru_gate_bwd_plain(rg, img, g),
+                 lambda *t: gate_previous(False, *t), (rg, img))):
+            key = (f'{kname} {dname} {list(shape)} {variant} '
+                   f'{plan[1] // 256}x{plan[2]}')
             per_call[key] = per_call_times(card, 'hires unit 1', key, match,
-                                           fn, args, tensors, ops, plain)
+                                           fn, args, tensors, ops, plain,
+                                           prev, outs)
     gate_err['K5'] = k5_hires(card, per_call)
     return launches, steps, per_call, {**err, **gate_err}
 
@@ -3612,6 +3665,9 @@ def gate_extras(kname, steps, results):
         'registers_per_thread': {
             k: v[0] for k, v in results['K3/K4 registers'].items()
             if k.startswith(kname)},
+        'resident_clusters': {
+            k: v[2] for k, v in results['K3/K4 registers'].items()
+            if k.startswith(kname) and ' cluster ' in k},
         'variants_max_abs_err': results['K3/K4 variants'][kname]}
 
 
@@ -3703,8 +3759,8 @@ def main() -> int:
         """K1-K4's per-call times at the planes beyond the default
         configuration's: the convnet encoder's (K1/K2; its 1x1 and 2x2
         planes in ragged groups) and the hires configuration's (K1/K2 in
-        blocks, K3/K4 multi-pass), K1/K2 beside the multi-pass kernel
-        where they left it and beside F.instance_norm+relu."""
+        blocks, K3/K4 in clusters), beside the multi-pass kernel where
+        they left it (K1/K2 also beside F.instance_norm+relu)."""
         return {
             'convnet_encoder_planes': {k: v for k, v in v_per_call.items()
                                        if k.startswith(kname)},

@@ -1,7 +1,7 @@
 // Helpers shared by the port's kernels: float32 loads and stores of the
 // two element types (float32, bfloat16), block-wide reductions, and the
-// register-resident plane machinery of the lane-group and block variants
-// (instance_norm_act.cu, mru_gate.cu).
+// register-resident plane machinery of the lane-group, block and cluster
+// variants (instance_norm_act.cu, mru_gate.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,6 +35,22 @@ struct Min {
 struct Max {
   __device__ __forceinline__ float operator()(float a, float b) const {
     return fmaxf(a, b);
+  }
+};
+// min and max that give NaN where either operand is NaN, as jnp.min and
+// torch.amin do (fminf and fmaxf return the other operand)
+struct MinNaN {
+  __device__ __forceinline__ float operator()(float a, float b) const {
+    float r;
+    asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+  }
+};
+struct MaxNaN {
+  __device__ __forceinline__ float operator()(float a, float b) const {
+    float r;
+    asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
   }
 };
 
@@ -72,18 +88,60 @@ struct alignas(16) Pack {
 
 // ---------------------------------------------------------------------------
 // A plane held in registers by the kG threads that own it: a lane group
-// (kG = 4 to 32, several planes to a block) or the whole block (kG =
-// kThreads). Each thread holds kV 16-byte vectors of the plane,
-// neighbouring threads on neighbouring vectors.
+// (kG = 4 to 32, several planes to a block), the whole block (kG =
+// kThreads) or a cluster of kG / kThreads blocks on neighbouring SMs (kG =
+// 2 to 8 x kThreads; launched with that cluster dimension). Each thread
+// holds kV 16-byte vectors of the plane, neighbouring threads on
+// neighbouring vectors.
 // ---------------------------------------------------------------------------
+
+// Floats of shared scratch that group_reduce needs for one reduction of kK
+// values over kG lanes: none below a warp (1, as an array needs one), one
+// per warp of the block, and kK more for the block's result where a
+// cluster combines its blocks. A constant, not a constexpr function: nvcc
+// refuses a host function's call in a __shared__ array's bound.
+template <int kG, int kK>
+struct GroupScratch {
+  static constexpr int kSize =
+      kG <= 32 ? 1 : (kThreads / 32 + (kG > kThreads ? 1 : 0)) * kK;
+};
+
+// Thread-block clusters (sm_90), in PTX: a barrier over every thread of
+// the cluster that orders the shared-memory writes before it with the
+// reads after it, and a read of the float at shared-memory address
+// `addr` (this block's layout) in the block of cluster rank `rank`.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.aligned;\n\t"
+      "barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ float cluster_load(uint32_t addr, int rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
 
 // Combines `v` over the kG threads that own one plane with `op`; every one
 // of them gets the results, bitwise the same. Within a warp, a butterfly
 // of shuffles (it combines the same two partials at each step, in either
 // order). A group wider than a warp then combines its warps' results
-// through `scratch` (kThreads / 32 * kK floats, written once: a second
-// reduction needs its own) in warp order, behind one barrier, so the
-// whole block must call it.
+// through `scratch` (GroupScratch<kG, kK>::kSize floats, written once: a
+// second reduction needs its own) in warp order, behind one barrier, so
+// the whole block must call it. A cluster then combines its blocks'
+// results: thread 0 of each block writes its block's to the end of
+// `scratch`, the cluster synchronises, and every thread reads the kG /
+// kThreads results from the blocks' shared memory (distributed shared
+// memory) in rank order, so every block gets the same bits. No block may
+// exit while another reads its scratch: the kernel ends its last round
+// with cluster_arrive and cluster_wait.
 template <int kG, int kK, typename Op>
 __device__ __forceinline__ void group_reduce(float (&v)[kK], Op op,
                                              float* scratch) {
@@ -96,7 +154,7 @@ __device__ __forceinline__ void group_reduce(float (&v)[kK], Op op,
     }
   }
   if constexpr (kG > 32) {
-    constexpr int kWarps = kG / 32;
+    constexpr int kWarps = (kG < kThreads ? kG : kThreads) / 32;
     const int warp = threadIdx.x >> 5;
     if ((threadIdx.x & 31) == 0) {
 #pragma unroll
@@ -112,6 +170,44 @@ __device__ __forceinline__ void group_reduce(float (&v)[kK], Op op,
       v[k] = t;
     }
   }
+  if constexpr (kG > kThreads) {
+    constexpr int kBlocks = kG / kThreads;
+    float* mine = scratch + kThreads / 32 * kK;
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int k = 0; k < kK; ++k) mine[k] = v[k];
+    }
+    cluster_sync();
+    const uint32_t at =
+        static_cast<uint32_t>(__cvta_generic_to_shared(mine));
+#pragma unroll
+    for (int k = 0; k < kK; ++k) {
+      float t = cluster_load(at + 4 * k, 0);
+#pragma unroll
+      for (int b = 1; b < kBlocks; ++b) {
+        t = op(t, cluster_load(at + 4 * k, b));
+      }
+      v[k] = t;
+    }
+  }
+}
+
+// The split cluster barrier that ends a cluster kernel's reductions: every
+// thread arrives after its last read of another block's scratch and waits
+// before the block exits, with the output stores between. No-ops below a
+// cluster.
+template <int kG>
+__device__ __forceinline__ void cluster_arrive() {
+  if constexpr (kG > kThreads) {
+    asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+  }
+}
+
+template <int kG>
+__device__ __forceinline__ void cluster_wait() {
+  if constexpr (kG > kThreads) {
+    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  }
 }
 
 template <int kG, int kK>
@@ -122,7 +218,9 @@ __device__ __forceinline__ void group_sums(float (&v)[kK],
 
 // Where a thread's share of a plane lies: the plane's offset, the thread's
 // place in its group, and whether the plane exists (the last block of the
-// grid may hold fewer planes than it has room for).
+// grid may hold fewer planes than it has room for). In a cluster, block b
+// of the plane's kG / kThreads consecutive blocks holds lanes b * kThreads
+// to b * kThreads + kThreads - 1.
 template <int kG>
 struct Slot {
   int64_t base;
@@ -130,9 +228,16 @@ struct Slot {
   bool valid;
 
   __device__ __forceinline__ Slot(int64_t planes, int64_t hw) {
-    const int64_t plane =
-        static_cast<int64_t>(blockIdx.x) * (kThreads / kG) + threadIdx.x / kG;
-    lane = threadIdx.x % kG;
+    int64_t plane;
+    if constexpr (kG > kThreads) {
+      constexpr int kBlocks = kG / kThreads;
+      plane = blockIdx.x / kBlocks;
+      lane = static_cast<int>(blockIdx.x % kBlocks) * kThreads + threadIdx.x;
+    } else {
+      plane = static_cast<int64_t>(blockIdx.x) * (kThreads / kG) +
+              threadIdx.x / kG;
+      lane = threadIdx.x % kG;
+    }
     valid = plane < planes;
     base = valid ? plane * hw : 0;
   }

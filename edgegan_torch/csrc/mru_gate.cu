@@ -30,7 +30,7 @@
 // Layout: contiguous NCHW, so each plane is one run of H*W elements. The
 // TPU kernels hold one batch row [H*W, C] in VMEM. Here the plane is held
 // in registers, read from device memory once, and its min, max and sums
-// are taken from there (common.cuh). Three variants, picked by the caller
+// are taken from there (common.cuh). Four variants, picked by the caller
 // (`gate_plan` in ops/kernels.py) and checked here:
 //   1 lane group: a group of `lanes` threads (4 to 32, a power of two)
 //     owns one plane, several planes to a 256-thread block, so the
@@ -45,11 +45,26 @@
 //     to 4096 float32 or 8192 bfloat16 elements: unit 1. Each round adds
 //     one combine of the 8 warps' results through shared memory, behind
 //     one barrier.
+//   4 cluster: a thread-block cluster of kC = 2 to 8 blocks on
+//     neighbouring SMs owns one plane, each block holding its share as
+//     the block variant holds its largest planes (4 vectors a thread), up
+//     to
+//     8 x 256 x 4 vectors: 32768 float32 or 65536 bfloat16 elements; the
+//     hires configuration's unit 1 (16384 elements). Each round adds a
+//     combine of the kC blocks' results, read from their shared memory
+//     (distributed shared memory) after a cluster barrier, in rank order;
+//     a split cluster barrier around the last output stores keeps every
+//     block resident until the others have read it. Launched with
+//     cudaLaunchKernelEx and the cluster dimension.
 //   0 multi-pass: one block of 32 to 256 threads walks the plane, once
 //     for the min and max and once more for each output pass (K4 three),
 //     re-reading it from L1/L2. It takes any H*W at any alignment: planes
-//     beyond a block's reach, H*W not a multiple of the vector width, and
-//     a base pointer not on 16 bytes.
+//     beyond a cluster's reach, H*W not a multiple of the vector width,
+//     and a base pointer not on 16 bytes.
+// The min and max give NaN on a plane that holds one, as jnp.min does
+// (min.NaN / max.NaN, not fminf): the output is then NaN over the plane,
+// and drg, whose tie shares are added by selection (`if (x == mn)`), is
+// what the Pallas kernel gives.
 // Register pressure is the trap: at 32 lanes x 8 vectors a thread holds
 // three inputs of 32 floats (K4: 128 registers, 2 blocks an SM). bfloat16
 // inputs stay packed in their vectors and are widened on use (`widen`),
@@ -74,19 +89,22 @@ namespace {
 using edgegan::addr_of;
 using edgegan::block_reduce;
 using edgegan::block_sum;
+using edgegan::cluster_arrive;
+using edgegan::cluster_wait;
 using edgegan::group_reduce;
+using edgegan::GroupScratch;
 using edgegan::group_sums;
 using edgegan::kThreads;
 using edgegan::load_plane;
 using edgegan::mask;
-using edgegan::Max;
-using edgegan::Min;
+using edgegan::MaxNaN;
+using edgegan::MinNaN;
 using edgegan::Pack;
 using edgegan::Slot;
 using edgegan::store;
 using edgegan::to_f32;
 
-constexpr int kMultiPass = 0, kLaneGroup = 1, kBlock = 2;
+constexpr int kMultiPass = 0, kLaneGroup = 1, kBlock = 2, kCluster = 4;
 
 // ---------------------------------------------------------------------------
 // Variant 0: multi-pass, one block per plane
@@ -99,11 +117,11 @@ __device__ __forceinline__ void plane_min_max(const T* p, int64_t hw,
   float lo = INFINITY, hi = -INFINITY;
   for (int64_t i = threadIdx.x; i < hw; i += blockDim.x) {
     const float v = to_f32(p[i]);
-    lo = fminf(lo, v);
-    hi = fmaxf(hi, v);
+    lo = MinNaN()(lo, v);
+    hi = MaxNaN()(hi, v);
   }
-  mn = block_reduce(lo, scratch, Min());
-  mx = block_reduce(hi, scratch, Max());
+  mn = block_reduce(lo, scratch, MinNaN());
+  mx = block_reduce(hi, scratch, MaxNaN());
 }
 
 template <typename T>
@@ -216,8 +234,8 @@ __device__ __forceinline__ float widen(const uint4& q, int e) {
 }
 
 // min and max of rg over the plane the group holds, every lane getting
-// the same bits; vectors outside the plane take no part (+INF for the
-// min, -INF for the max).
+// the same bits, NaN where the plane holds a NaN; vectors outside the
+// plane take no part (+INF for the min, -INF for the max).
 template <typename T, int kG, int kV>
 __device__ __forceinline__ void group_min_max(const uint4 (&rg)[kV],
                                               const bool (&in)[kV],
@@ -230,11 +248,11 @@ __device__ __forceinline__ void group_min_max(const uint4 (&rg)[kV],
 #pragma unroll
     for (int e = 0; e < Pack<T>::kN; ++e) {
       const float x = widen<T>(rg[v], e);
-      ext[0] = fminf(ext[0], x);
-      ext[1] = fminf(ext[1], -x);
+      ext[0] = MinNaN()(ext[0], x);
+      ext[1] = MinNaN()(ext[1], -x);
     }
   }
-  group_reduce<kG>(ext, Min(), scratch);
+  group_reduce<kG>(ext, MinNaN(), scratch);
   mn = ext[0];
   mx = -ext[1];
 }
@@ -245,8 +263,8 @@ mru_gate_fwd_resident(const T* __restrict__ rg, const T* __restrict__ ht,
                       const T* __restrict__ img, T* __restrict__ out,
                       int64_t planes, int64_t hw) {
   constexpr int kN = Pack<T>::kN;
-  // shared memory only for the block variant's cross-warp combines
-  __shared__ float scratch[kG > 32 ? kThreads / 32 * 2 : 1];
+  // shared memory only for the cross-warp (and cross-block) combines
+  __shared__ float scratch[GroupScratch<kG, 2>::kSize];
   const Slot<kG> at(planes, hw);
   bool in[kV];
   mask(at, static_cast<int>(hw / kN), in);
@@ -259,6 +277,7 @@ mru_gate_fwd_resident(const T* __restrict__ rg, const T* __restrict__ ht,
   group_min_max<T, kG>(r_rg, in, scratch, mn, mx);
   const float r = mx - mn;
   const float den = r > 0.f ? r : 1.f;
+  cluster_arrive<kG>();
 
   Pack<T>* outp = reinterpret_cast<Pack<T>*>(out + at.base);
 #pragma unroll
@@ -273,6 +292,7 @@ mru_gate_fwd_resident(const T* __restrict__ rg, const T* __restrict__ ht,
     }
     outp[v * kG + at.lane] = o;
   }
+  cluster_wait<kG>();
 }
 
 // At least one block an SM, said outright: left to choose, ptxas holds
@@ -285,8 +305,8 @@ mru_gate_bwd_resident(const T* __restrict__ rg, const T* __restrict__ img,
                       const T* __restrict__ g, T* __restrict__ drg,
                       T* __restrict__ dimg, int64_t planes, int64_t hw) {
   constexpr int kN = Pack<T>::kN;
-  __shared__ float scratch_mm[kG > 32 ? kThreads / 32 * 2 : 1];
-  __shared__ float scratch_s[kG > 32 ? kThreads / 32 * 5 : 1];
+  __shared__ float scratch_mm[GroupScratch<kG, 2>::kSize];
+  __shared__ float scratch_s[GroupScratch<kG, 5>::kSize];
   const Slot<kG> at(planes, hw);
   bool in[kV];
   mask(at, static_cast<int>(hw / kN), in);
@@ -330,6 +350,7 @@ mru_gate_bwd_resident(const T* __restrict__ rg, const T* __restrict__ img,
   const float d_max = pos ? -s[1] / den : 0.f;
   const float q_min = d_min / s[3];
   const float q_max = d_max / s[4];
+  cluster_arrive<kG>();
 
   Pack<T>* drgp = reinterpret_cast<Pack<T>*>(drg + at.base);
 #pragma unroll
@@ -347,6 +368,7 @@ mru_gate_bwd_resident(const T* __restrict__ rg, const T* __restrict__ img,
     }
     drgp[v * kG + at.lane] = o;
   }
+  cluster_wait<kG>();
 }
 
 // ---------------------------------------------------------------------------
@@ -360,11 +382,13 @@ template <typename T>
 using BwdKernel = void (*)(const T*, const T*, const T*, T*, T*, int64_t,
                            int64_t);
 
-// The (variant, lanes, vectors) built for the register-resident kernels.
+// The (variant, lanes, vectors) built for the register-resident kernels;
+// a cluster's lanes are kC x kThreads.
 #define EDGEGAN_GATE_SHAPES(X)                                             \
   X(kLaneGroup, 4, 1) X(kLaneGroup, 8, 1) X(kLaneGroup, 16, 1)             \
   X(kLaneGroup, 32, 1) X(kLaneGroup, 32, 2) X(kLaneGroup, 32, 4)           \
-  X(kLaneGroup, 32, 8) X(kBlock, 256, 2) X(kBlock, 256, 4)
+  X(kLaneGroup, 32, 8) X(kBlock, 256, 2) X(kBlock, 256, 4)                 \
+  X(kCluster, 512, 4) X(kCluster, 1024, 4) X(kCluster, 2048, 4)
 
 template <typename T>
 FwdKernel<T> pick_fwd(int variant, int lanes, int vectors) {
@@ -399,16 +423,29 @@ bool bad_args(int64_t planes, int64_t hw, int dtype) {
          (dtype != 0 && dtype != 1);
 }
 
+// Blocks in one cluster: lanes / kThreads for the cluster variant, else
+// 1 (no cluster).
+int cluster_blocks(int variant, int lanes) {
+  return variant == kCluster ? lanes / kThreads : 1;
+}
+
 bool holds(int variant, int lanes, int vectors, int64_t hw, int dtype,
-           uintptr_t addr) {
-  return variant == kMultiPass ||
+           int64_t planes, uintptr_t addr) {
+  if (variant == kMultiPass) return true;
+  // a cluster launches planes x kC blocks, at most 2^31 - 1 of them
+  const int blocks = cluster_blocks(variant, lanes);
+  return blocks > 0 && planes <= 0x7fffffffLL / blocks &&
          edgegan::resident_holds(lanes, vectors, hw, dtype, addr);
 }
 
 // (blocks, threads) for `planes` planes: one block of threads_for(hw)
-// per plane (multi-pass), or blocks of kThreads holding kThreads / lanes
-// planes each.
+// per plane (multi-pass), kC blocks of kThreads per plane (cluster), or
+// blocks of kThreads holding kThreads / lanes planes each.
 dim3 grid_for(int variant, int lanes, int64_t planes) {
+  if (variant == kCluster) {
+    return dim3(static_cast<unsigned>(planes * cluster_blocks(variant,
+                                                              lanes)));
+  }
   const int64_t per_block = variant == kMultiPass ? 1 : kThreads / lanes;
   return dim3(static_cast<unsigned>((planes + per_block - 1) / per_block));
 }
@@ -417,16 +454,39 @@ int threads(int variant, int64_t hw) {
   return variant == kMultiPass ? threads_for(hw) : kThreads;
 }
 
+// The launch configuration of `planes` planes on `stream`, with the
+// cluster dimension where the variant is a cluster; `attr` must outlive
+// the launch call.
+cudaLaunchConfig_t launch_config(int variant, int lanes, int64_t planes,
+                                 int64_t hw, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid_for(variant, lanes, planes);
+  config.blockDim = dim3(threads(variant, hw));
+  config.dynamicSmemBytes = 0;
+  config.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster_blocks(variant, lanes);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = variant == kCluster ? 1 : 0;
+  return config;
+}
+
 template <typename T>
 int launch_fwd(const void* rg, const void* ht, const void* img, void* out,
                int64_t planes, int64_t hw, int variant, int lanes,
                int vectors, cudaStream_t stream) {
   const FwdKernel<T> kernel = pick_fwd<T>(variant, lanes, vectors);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<grid_for(variant, lanes, planes), threads(variant, hw), 0,
-           stream>>>(static_cast<const T*>(rg), static_cast<const T*>(ht),
-                     static_cast<const T*>(img), static_cast<T*>(out),
-                     planes, hw);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config =
+      launch_config(variant, lanes, planes, hw, stream, &attr);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, kernel, static_cast<const T*>(rg), static_cast<const T*>(ht),
+      static_cast<const T*>(img), static_cast<T*>(out), planes, hw);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -436,24 +496,29 @@ int launch_bwd(const void* rg, const void* img, const void* g, void* drg,
                int lanes, int vectors, cudaStream_t stream) {
   const BwdKernel<T> kernel = pick_bwd<T>(variant, lanes, vectors);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<grid_for(variant, lanes, planes), threads(variant, hw), 0,
-           stream>>>(static_cast<const T*>(rg), static_cast<const T*>(img),
-                     static_cast<const T*>(g), static_cast<T*>(drg),
-                     static_cast<T*>(dimg), planes, hw);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config =
+      launch_config(variant, lanes, planes, hw, stream, &attr);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, kernel, static_cast<const T*>(rg), static_cast<const T*>(img),
+      static_cast<const T*>(g), static_cast<T*>(drg), static_cast<T*>(dimg),
+      planes, hw);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // K3. dtype: 0 float32, 1 bfloat16; rg, ht, img and out of one shape.
-// variant: 0 multi-pass (lanes 256, vectors 0), 1 lane group, 2 block.
+// variant: 0 multi-pass (lanes 256, vectors 0), 1 lane group, 2 block,
+// 4 cluster (lanes kC x 256).
 extern "C" int edgegan_mru_gate_fwd(const void* rg, const void* ht,
                                     const void* img, void* out,
                                     int64_t planes, int64_t hw, int dtype,
                                     int variant, int lanes, int vectors,
                                     void* stream) {
   if (bad_args(planes, hw, dtype) ||
-      !holds(variant, lanes, vectors, hw, dtype,
+      !holds(variant, lanes, vectors, hw, dtype, planes,
              addr_of(rg) | addr_of(ht) | addr_of(img) | addr_of(out))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -472,7 +537,7 @@ extern "C" int edgegan_mru_gate_bwd(const void* rg, const void* img,
                                     int variant, int lanes, int vectors,
                                     void* stream) {
   if (bad_args(planes, hw, dtype) ||
-      !holds(variant, lanes, vectors, hw, dtype,
+      !holds(variant, lanes, vectors, hw, dtype, planes,
              addr_of(rg) | addr_of(img) | addr_of(g) | addr_of(drg) |
                  addr_of(dimg))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -486,7 +551,10 @@ extern "C" int edgegan_mru_gate_bwd(const void* rg, const void* img,
 }
 
 // What the compiler gave one kernel: out[0] registers per thread, out[1]
-// local memory per thread in bytes (spills). bwd: 0 K3, 1 K4.
+// local memory per thread in bytes (spills), and out[2], for the cluster
+// variant, the clusters of its size that can be resident on the card at
+// once (cudaOccupancyMaxActiveClusters; 0 for the other variants).
+// bwd: 0 K3, 1 K4.
 extern "C" int edgegan_mru_gate_attrs(int bwd, int dtype, int variant,
                                       int lanes, int vectors, int* out) {
   if (dtype != 0 && dtype != 1) {
@@ -509,5 +577,14 @@ extern "C" int edgegan_mru_gate_attrs(int bwd, int dtype, int variant,
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = attr.numRegs;
   out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = 0;
+  if (variant == kCluster) {
+    cudaLaunchAttribute cattr;
+    const cudaLaunchConfig_t config =
+        launch_config(variant, lanes, 1024, 1, nullptr, &cattr);
+    const cudaError_t cerr =
+        cudaOccupancyMaxActiveClusters(&out[2], fn, &config);
+    if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  }
   return 0;
 }

@@ -9,14 +9,17 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .in_checks import _require, _within
+from .in_checks import _require, _within, with_nonfinite
 
 # Plane sizes (H, W) that reach every variant: 1, 9 and 63 elements (not
 # whole 16-byte vectors: multi-pass), MRU units 4 to 1 (64, 256 and 1024
 # elements in lane groups, 4096 in a block), 1536 (a block in float32, a
-# lane group in bfloat16) and 16384 (beyond a block: multi-pass).
+# lane group in bfloat16), 16384 (the hires unit 1: a cluster of 4 blocks
+# in float32, 2 in bfloat16), 32768 (a cluster of 8 blocks in float32)
+# and 65536 (beyond a cluster in float32: multi-pass; 8 blocks in
+# bfloat16).
 GATE_PLANES = [(1, 1), (3, 3), (7, 9), (8, 8), (16, 16), (32, 32), (24, 64),
-               (64, 64), (128, 128)]
+               (64, 64), (128, 128), (128, 256), (256, 256)]
 
 
 def gate_inputs(device, shape, dtype, seed: int = 0):
@@ -34,6 +37,59 @@ def gate_inputs(device, shape, dtype, seed: int = 0):
         p[0] = p[-1] = lo
         p[1] = p[-2] = hi
     return tuple(t.to(device, dtype) for t in (rg, ht, img, g))
+
+
+def with_nonfinite_gate(rg):
+    """A copy of `rg` (4 planes or more) in which plane (0, 1) holds +inf
+    at its first element and plane (0, 2) a NaN at its last
+    (`in_checks.with_nonfinite`), and plane (0, 3) -inf at its middle."""
+    out = with_nonfinite(rg)
+    p = out[0, 3].view(-1)
+    p[p.numel() // 2] = float('-inf')
+    return out
+
+
+def _bits(t):
+    """`t`'s bits as integers, so that NaNs compare equal to themselves."""
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def check_gate_nonfinite(rg, ht, img, g, tol, bwd_tol, variant: str,
+                         label: str = ''):
+    """K3 and K4 on CUDA tensors whose rg holds +inf, NaN and -inf planes
+    (`with_nonfinite_gate`), each run twice, against their plain versions
+    element by element: NaN where the plain version gives NaN, the same
+    inf where it gives an inf, and within `tol` (K3) and `bwd_tol` (K4)
+    elsewhere, the other planes included. Raises AssertionError unless
+    both launched twice in `variant`, the two runs are bitwise equal, the
+    plain K3 gives a NaN on each of the three planes (so the check sees
+    them) and the plain K4's drg none on the NaN plane (the Pallas
+    kernel's drg: its tie shares never reach an element there)."""
+    rg = with_nonfinite_gate(rg)
+    before = dict(kernels.LAUNCHES)
+    outs = [kernels.mru_gate_blend(rg, ht, img) for _ in range(2)]
+    grads = [kernels.mru_gate_bwd(rg, img, g) for _ in range(2)]
+    torch.cuda.synchronize()
+    what = f'{label} (+inf, NaN and -inf planes)'
+    for name in ('mru_gate_blend', 'mru_gate_bwd'):
+        key = f'{name}.{variant}'
+        _require(kernels.LAUNCHES[key] == before[key] + 2,
+                 f'{what}: {name} not launched twice as {variant}')
+    _require(torch.equal(_bits(outs[0]), _bits(outs[1]))
+             and all(torch.equal(_bits(a), _bits(b))
+                     for a, b in zip(*grads)),
+             f'{what}: two runs differ')
+    ref = kernels.mru_gate_blend_plain(rg, ht, img)
+    _require(all(bool(ref[0, p].float().isnan().any()) for p in (1, 2, 3)),
+             f'{what}: K3 plain gives no NaN on a nonfinite plane')
+    e, ok = _within(outs[0], ref, tol, equal_nan=True)
+    _require(ok, f'{what}: K3 differs from plain by {e:.3g}')
+    refs = kernels.mru_gate_bwd_plain(rg, img, g)
+    _require(not bool(refs[0][0, 2].float().isnan().any()),
+             f'{what}: K4 plain gives NaN on the NaN plane')
+    for name, got, want in zip(('drg', 'dimg'), grads[0], refs):
+        e, ok = _within(got, want, bwd_tol, equal_nan=True)
+        _require(ok, f'{what}: K4 {name} differs from plain by {e:.3g}')
 
 
 def check_gate(rg, ht, img, g, tol, bwd_tol, variant: str,

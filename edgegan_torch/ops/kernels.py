@@ -45,7 +45,10 @@ block and ragged or misaligned planes beyond 256 elements. The bound is
 bytes, and one read of each input is what it allows.
 K3 and K4 (csrc/mru_gate.cu) hold each plane of the MRU gate the same way
 (`gate_plan`): lane groups for MRU units 2 to 4, and for unit 1's 4096
-elements the block variant; they build no ragged variant. K5, K3 and K4
+elements the block variant; they build no ragged variant. They add a
+fifth, 'cluster': a thread-block cluster of 2 to 8 blocks on one plane,
+up to 32768 float32 or 65536 bfloat16 elements, for the hires
+configuration's unit 1 (16384 elements). K5, K3 and K4
 run in the classifier, and only when their switches are on
 (`prelu_enabled`, `gate_enabled`): 42, 12 and 12 times per training step
 (three classifier passes, each through 14 PReLUs and 4 MRU gates).
@@ -75,8 +78,10 @@ _ACTS = {None: 0, 'relu': 1, 'lrelu': 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # K3's and K4's variants (mru_gate.cu) and their numbers there
-GATE_VARIANTS = {'multi_pass': 0, 'lane_group': 1, 'block': 2}
-# K1's and K2's (instance_norm_act.cu): those and the ragged lane group
+GATE_VARIANTS = {'multi_pass': 0, 'lane_group': 1, 'block': 2, 'cluster': 4}
+# K1's and K2's (instance_norm_act.cu): the first three and the ragged
+# lane group; `_launch_planes` numbers every variant through this table,
+# so it holds K3/K4's cluster too, which K1/K2's plan never picks
 IN_VARIANTS = {**GATE_VARIANTS, 'ragged': 3}
 IN_THREADS = 256      # threads a block, in every variant but K3/K4's
                       # multi-pass kernel (32 to 256 by the plane's size)
@@ -84,6 +89,8 @@ IN_MAX_VECTORS = 8    # 16-byte vectors a lane-group thread holds, at most
 BLOCK_VECTORS = 4     # and a thread of the block variant (K1-K4)
 RAGGED_ELEMENTS = 8   # elements a thread of a ragged group holds, at most
 RAGGED_REACH = 32 * RAGGED_ELEMENTS  # the largest ragged plane
+CLUSTER_BLOCKS = 8    # blocks in a K3/K4 cluster, at most (the portable
+                      # cluster size of sm_90)
 # Launches per kernel, counted where the kernel is launched and nowhere
 # else, and per variant ('instance_norm_act.lane_group', ...). Callers
 # reset an entry to 0 to count one run.
@@ -231,7 +238,7 @@ def _pow2_at_least(n: int) -> int:
 
 
 def plane_plan(hw: int, dtype: torch.dtype, data_ptr: int,
-               ragged_reach: int = 0):
+               ragged_reach: int = 0, cluster_blocks: int = 0):
     """(variant, lanes, vectors) of a per-plane kernel (K1-K4) for planes
     of `hw` elements of `dtype` at `data_ptr` (the tensors' addresses
     OR-ed together, so that one misaligned pointer shows): `lanes` threads
@@ -243,6 +250,18 @@ def plane_plan(hw: int, dtype: torch.dtype, data_ptr: int,
     - 'block' (lanes 256) beyond that while the plane fits 256 threads x
       BLOCK_VECTORS vectors (4096 float32 or 8192 bfloat16 elements), as
       few vectors as hold it.
+    - 'cluster' (lanes kC x 256, kC blocks of a thread-block cluster on one
+      plane) beyond that, up to `cluster_blocks` blocks (0: K1/K2, which
+      build no such variant) x 256 x BLOCK_VECTORS vectors (32768 float32
+      or 65536 bfloat16 elements at 8 blocks). The rule: BLOCK_VECTORS
+      vectors a thread, as the block variant holds its largest planes,
+      and the fewest blocks (a power of two) that hold the plane so. Each
+      block of a cluster adds remote reads to every round and a member to
+      every cluster barrier; on the card the hires unit 1's K4 ran faster
+      at 4 blocks x 4 vectors than at 8 x 2 (float32) and at 2 x 4 than
+      at 4 x 2 (bfloat16), at 100 registers and no spill (PERF.md). The
+      hires unit 1 plane (16384 elements) takes 4 blocks in float32 and 2
+      in bfloat16.
     - Where the plane does not split into whole 16-byte vectors from a
       16-byte boundary (`hw` not a multiple of 16 / itemsize, or
       `data_ptr` not a multiple of 16): 'ragged' up to `ragged_reach`
@@ -263,20 +282,23 @@ def plane_plan(hw: int, dtype: torch.dtype, data_ptr: int,
         return 'lane_group', 32, _pow2_at_least(-(-nvec // 32))
     if nvec <= IN_THREADS * BLOCK_VECTORS:
         return 'block', IN_THREADS, _pow2_at_least(-(-nvec // IN_THREADS))
+    blocks = _pow2_at_least(-(-nvec // (IN_THREADS * BLOCK_VECTORS)))
+    if blocks <= cluster_blocks:
+        return 'cluster', blocks * IN_THREADS, BLOCK_VECTORS
     return 'multi_pass', IN_THREADS, 0
 
 
 def instance_norm_plan(hw: int, dtype: torch.dtype, data_ptr: int):
     """K1's and K2's (variant, lanes, vectors): `plane_plan` with ragged
     groups for ragged or misaligned planes of up to RAGGED_REACH
-    elements."""
+    elements, and no clusters."""
     return plane_plan(hw, dtype, data_ptr, RAGGED_REACH)
 
 
 def gate_plan(hw: int, dtype: torch.dtype, data_ptr: int):
     """K3's and K4's (variant, lanes, vectors): `plane_plan` without the
-    ragged variant."""
-    return plane_plan(hw, dtype, data_ptr)
+    ragged variant, with clusters of up to CLUSTER_BLOCKS blocks."""
+    return plane_plan(hw, dtype, data_ptr, cluster_blocks=CLUSTER_BLOCKS)
 
 
 def _launch_planes(name: str, entry, plan, x, *tensors, act=()):
@@ -470,8 +492,11 @@ def mru_gate_bwd_plain(rg, img, g):
     tied at the minimum and the maximum, an even share of
     dmn = sum(drgn*(rg - max))/r^2 and dmx = -sum(drgn*rgn)/den, with a
     flat plane sending -sum(drgn) to its minimum
-    (pallas_kernels.py:317-343). float32 math, outputs in the inputs'
-    dtypes."""
+    (pallas_kernels.py:317-343). The shares are added by selection, the
+    minimum's first, as XLA lowers the kernel's 0/1 mask products and as
+    the kernels add them: a NaN or inf share stays off the elements that
+    are not tied (a product with the mask would put NaN on them). float32
+    math, outputs in the inputs' dtypes."""
     rg32, img32, g32 = _wide(rg), _wide(img), _wide(g)
     mn, mx, r, pos, den = _gate_stats(rg32)
     rgn = (rg32 - mn) / den
@@ -482,10 +507,12 @@ def mru_gate_bwd_plain(rg, img, g):
                         / r2, -drgn.sum(dims, keepdim=True))
     d_max = torch.where(pos, -(drgn * rgn).sum(dims, keepdim=True) / den,
                         torch.zeros_like(r))
-    is_min, is_max = (rg32 == mn).to(rg32.dtype), (rg32 == mx).to(rg32.dtype)
-    n_min = is_min.sum(dims, keepdim=True)
-    n_max = is_max.sum(dims, keepdim=True)
-    drg = drgn / den + is_min * (d_min / n_min) + is_max * (d_max / n_max)
+    is_min, is_max = rg32 == mn, rg32 == mx
+    n_min = is_min.to(rg32.dtype).sum(dims, keepdim=True)
+    n_max = is_max.to(rg32.dtype).sum(dims, keepdim=True)
+    drg = drgn / den
+    drg = torch.where(is_min, drg + d_min / n_min, drg)
+    drg = torch.where(is_max, drg + d_max / n_max, drg)
     return drg.to(rg.dtype), (g32 * rgn).to(img.dtype)
 
 

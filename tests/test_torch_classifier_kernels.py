@@ -25,6 +25,8 @@ SWITCHES = ('EDGEGAN_PALLAS_PRELU', 'EDGEGAN_PALLAS_GATE')
 DTYPES = [torch.float32, torch.bfloat16]
 # The classifier's four MRU gates, (C, H, W): units 1 to 4
 GATE_SHAPES = [(8, 64, 64), (128, 32, 32), (256, 16, 16), (512, 8, 8)]
+# (variant, lanes, vectors) in csrc/mru_gate.cu's EDGEGAN_GATE_SHAPES
+GATE_SHAPES_BUILT = 12
 
 
 def _nchw_t(a):
@@ -94,15 +96,16 @@ def test_prelu_bwd_matches_pallas_vjp(leak):
 
 
 @pytest.mark.parametrize('hw', [(6, 8), (1, 1), (3, 3), (7, 9), (8, 8),
-                                (32, 32), (64, 64)],
+                                (32, 32), (64, 64), (128, 128)],
                          ids=lambda hw: f'{hw[0]}x{hw[1]}')
 def test_gate_matches_pallas_vjp(hw):
     """`mru_gate_blend_plain` and `mru_gate_bwd_plain`, and the Function
     on the CPU, against `pallas_kernels.mru_gate_blend` in interpret mode
     and `jax.vjp` of it: forward within 1e-6, the three gradients within
     1e-5 (test_pallas.py:82,91), with a flat plane and ties at both
-    extrema of another, at planes of 48 elements and of 1, 9, 63 and
-    64-4096 (MRU units 4 to 1). The Function returns dht = g."""
+    extrema of another, at planes of 48 elements and of 1, 9, 63, 64-4096
+    (MRU units 4 to 1) and 16384 (the hires unit 1, a cluster's plane on
+    the card). The Function returns dht = g."""
     jax = pytest.importorskip('jax')
     jnp = jax.numpy
     from edgegan_tpu.ops import pallas_kernels as pk
@@ -199,28 +202,36 @@ def _gate_built():
         src = f.read()
     shapes = src[src.index('#define EDGEGAN_GATE_SHAPES'):]
     shapes = shapes[:shapes.index('\n\n')]
-    names = {'kLaneGroup': 'lane_group', 'kBlock': 'block'}
+    names = {'kLaneGroup': 'lane_group', 'kBlock': 'block',
+             'kCluster': 'cluster'}
     built = {(names[v], int(g), int(n)) for v, g, n in
              re.findall(r'X\((\w+), (\d+), (\d+)\)', shapes)}
-    assert len(built) == 9, built
+    assert len(built) == GATE_SHAPES_BUILT, built
     return built | {('multi_pass', 256, 0)}
 
 
 def test_gate_plan_is_built_holds_the_plane_and_never_vectorises_ragged():
-    """For every plane size up to twice a block's reach and every
-    misalignment of 2 to 14 bytes: the gate plan names a kernel the source
-    builds; a register-resident variant is picked only for whole 16-byte
-    vectors from a 16-byte boundary, a lane group up to 32 x 8 vectors and
-    a block beyond that up to 256 x 4, each holding the plane in at most
-    twice the room it needs (or in the smallest group); every other plane
-    takes the multi-pass kernel."""
+    """For every plane size up to twice a cluster's reach, and every
+    misalignment of 2 to 14 bytes (beyond twice a block's reach, those of
+    2 and 16 bytes): the gate plan names a kernel the source builds; a
+    register-resident variant is picked only for whole 16-byte vectors
+    from a 16-byte boundary, a lane group up to 32 x 8 vectors, a block
+    beyond that up to 256 x 4, and a cluster beyond that up to 8 blocks x
+    256 x 4, each holding the plane in at most twice the room it needs
+    (or in the smallest group); the cluster by the rule `plane_plan`
+    states: 4 vectors a thread and the fewest blocks (a power of two, 2 to
+    8) that hold the plane so; every other plane takes the multi-pass
+    kernel."""
     built = _gate_built()
     reached = set()
     for dtype in DTYPES:
         per_vector = 16 // dtype.itemsize
-        for hw in range(1, 2 * 256 * 4 * per_vector + 2):
+        block_reach = 256 * 4 * per_vector
+        for hw in range(1, 2 * 8 * block_reach + 2):
             nvec, ragged = divmod(hw, per_vector)
-            for offset in (0, 2, 4, 6, 8, 10, 12, 14, 16, 48):
+            offsets = ((0, 2, 4, 6, 8, 10, 12, 14, 16, 48)
+                       if hw <= 2 * block_reach else (0, 2, 16))
+            for offset in offsets:
                 plan = kernels.gate_plan(hw, dtype, 4096 + offset)
                 assert plan in built, (hw, dtype, offset, plan)
                 reached.add(plan)
@@ -233,6 +244,11 @@ def test_gate_plan_is_built_holds_the_plane_and_never_vectorises_ragged():
                     assert variant == 'lane_group', (hw, dtype, plan)
                 elif nvec <= 256 * 4:
                     assert variant == 'block', (hw, dtype, plan)
+                elif nvec <= 8 * 256 * 4:
+                    blocks = 1 << (-(-nvec // (256 * 4)) - 1).bit_length()
+                    assert plan == ('cluster', blocks * 256, 4), (hw, dtype,
+                                                                  plan)
+                    assert 2 <= blocks <= 8, (hw, dtype, plan)
                 else:
                     assert variant == 'multi_pass', (hw, dtype, plan)
                     continue
@@ -419,7 +435,25 @@ GATE_VARIANT = {(1, 1): 'multi_pass', (3, 3): 'multi_pass',
                 (7, 9): 'multi_pass', (8, 8): 'lane_group',
                 (16, 16): 'lane_group', (32, 32): 'lane_group',
                 (24, 64): 'block', (64, 64): 'block',
-                (128, 128): 'multi_pass'}
+                (128, 128): 'cluster', (128, 256): 'cluster',
+                (256, 256): 'multi_pass'}
+
+
+def _planned_variant(hw, dtype, ins):
+    """The variant the gate plan picks for `ins`, checked against
+    GATE_VARIANT (where bfloat16 differs: 1536 elements in a lane group,
+    65536 in a cluster)."""
+    addr = 0
+    for t in ins:
+        addr |= t.data_ptr()
+    variant = kernels.gate_plan(hw[0] * hw[1], dtype, addr)[0]
+    want = GATE_VARIANT[hw]
+    if dtype == torch.bfloat16 and hw == (24, 64):
+        want = 'lane_group'   # 192 vectors: 32 lanes x 8
+    if dtype == torch.bfloat16 and hw == (256, 256):
+        want = 'cluster'      # 8192 vectors: 8 blocks x 256 x 4
+    assert variant == want
+    return variant
 
 
 @pytest.mark.cuda
@@ -428,20 +462,29 @@ GATE_VARIANT = {(1, 1): 'multi_pass', (3, 3): 'multi_pass',
                          ids=lambda hw: f'{hw[0]}x{hw[1]}')
 def test_gate_variants_match_plain_on_card(cuda, dtype, hw):
     """Each variant, where the gate plan sends this plane size (ragged,
-    MRU units 4 to 1, between and beyond): K3 and K4 against their plain
-    versions on 37 planes, one flat and one tied at both extrema, with
-    the per-variant launch counts and two runs bitwise equal."""
+    MRU units 4 to 1, the hires unit 1, between and beyond): K3 and K4
+    against their plain versions on 37 planes, one flat and one tied at
+    both extrema, with the per-variant launch counts and two runs bitwise
+    equal."""
     ins = gate_checks.gate_inputs(cuda, (1, 37) + hw, dtype)
-    addr = 0
-    for t in ins:
-        addr |= t.data_ptr()
-    variant = kernels.gate_plan(hw[0] * hw[1], dtype, addr)[0]
-    want = GATE_VARIANT[hw]
-    if hw == (24, 64) and dtype == torch.bfloat16:
-        want = 'lane_group'   # 192 vectors: 32 lanes x 8
-    assert variant == want
+    variant = _planned_variant(hw, dtype, ins)
     gate_checks.check_gate(*ins, GATE_TOL[dtype], GATE_BWD_TOL[dtype],
                            variant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('hw', gate_checks.GATE_PLANES,
+                         ids=lambda hw: f'{hw[0]}x{hw[1]}')
+def test_gate_variants_on_nonfinite_planes_on_card(cuda, dtype, hw):
+    """Each variant on planes holding +inf, NaN and -inf: K3 and K4 give
+    NaN where their plain versions do (the min and max of a NaN plane are
+    NaN, as jnp.min's), the same infs, and agree within the limits
+    elsewhere; two runs bitwise equal."""
+    ins = gate_checks.gate_inputs(cuda, (1, 37) + hw, dtype)
+    variant = _planned_variant(hw, dtype, ins)
+    gate_checks.check_gate_nonfinite(*ins, GATE_TOL[dtype],
+                                     GATE_BWD_TOL[dtype], variant)
 
 
 @pytest.mark.cuda
@@ -469,10 +512,12 @@ def test_gate_misaligned_input_takes_multi_pass_on_card(cuda, dtype):
 def test_gate_library_refuses_impossible_variant_on_card(cuda):
     """The C entry points launch a variant only where it is built and
     holds the plane: 16 lanes x 1 vector hold a 64-element float32 plane,
-    and so does a block of 2 vectors; 4 x 1 do not, 12 lanes and a block
-    of 128 lanes are not built, a base off 16 bytes is refused
-    (cudaErrorInvalidValue, 1), as are multi-pass with vectors and a
-    variant 3, which is not built."""
+    and so does a block of 2 vectors, and a cluster of 2 blocks x 4; 4 x
+    1 do not, 12 lanes and a block of 128 lanes are not built, a base off
+    16 bytes is refused (cudaErrorInvalidValue, 1), as are multi-pass
+    with vectors, a variant 3, which is not built, a cluster of 3 blocks
+    and one of 16, and a plane beyond the named cluster (16384 float32
+    elements to 2 blocks x 4 vectors)."""
     from edgegan_torch.ops._build import library
     lib = library()
     rg, ht, img, g = gate_checks.gate_inputs(cuda, (1, 4, 8, 8),
@@ -487,7 +532,7 @@ def test_gate_library_refuses_impossible_variant_on_card(cuda):
                                         64, 0, variant, lanes, vectors, s)
 
     ref = kernels.mru_gate_blend_plain(rg, ht, img)
-    for variant, lanes, vectors in ((1, 16, 1), (2, 256, 2)):
+    for variant, lanes, vectors in ((1, 16, 1), (2, 256, 2), (4, 512, 4)):
         assert fwd(rg.data_ptr(), variant, lanes, vectors) == 0
         torch.cuda.synchronize()
         torch.testing.assert_close(out, ref, **GATE_TOL[torch.float32])
@@ -497,6 +542,13 @@ def test_gate_library_refuses_impossible_variant_on_card(cuda):
     assert fwd(rg.data_ptr() + 4, 1, 16, 1) == 1
     assert fwd(rg.data_ptr(), 0, 256, 1) == 1
     assert fwd(rg.data_ptr(), 3, 256, 2) == 1
+    assert fwd(rg.data_ptr(), 4, 768, 4) == 1
+    assert fwd(rg.data_ptr(), 4, 4096, 4) == 1
+    big = gate_checks.gate_inputs(cuda, (1, 2, 128, 128), torch.float32)
+    big_out = torch.empty_like(big[0])
+    assert lib.edgegan_mru_gate_fwd(
+        big[0].data_ptr(), big[1].data_ptr(), big[2].data_ptr(),
+        big_out.data_ptr(), 2, 128 * 128, 0, 4, 512, 4, s) == 1
     # a lane group holds a plane smaller than its room, too
     drg, dimg = torch.empty_like(rg), torch.empty_like(rg)
     assert lib.edgegan_mru_gate_bwd(
